@@ -1,0 +1,9 @@
+from .fastx import (  # noqa: F401
+    read_fastx,
+    write_fasta,
+    reverse_complement,
+    detect_filetype,
+    FastxRecord,
+)
+from .seed import set_seed  # noqa: F401
+from .timing import Timer, timedelta_to_str  # noqa: F401
