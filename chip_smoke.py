@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels (``build/libgnnome_kernels.so``) and the host
 library (``build/libgnnome_host.so``) from the sources in the checkout, then
-runs four phases, each printing one JSON line:
+runs six phases, each printing one JSON line:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, compute capability, build seconds, the compiler's per-kernel
@@ -15,19 +15,37 @@ runs four phases, each printing one JSON line:
    ``weights/weights.npz`` (d=H=64, 8 layers) on the card; held against the
    port's own CPU run; two card runs bitwise equal; K3 launched 8 times and
    K6 once per forward; average precision against the graph's labels.
-3. ``kernels``: K3 (both flips) and K6 (both flips) at the golden graph's
-   shapes on its real CSR, inputs from ``--seed``; each kernel against its
-   plain PyTorch version on the card, and timed (CUDA events around 10
-   back-to-back calls, median of 10 such repeats, after warm-up) beside its
-   least possible time, with the per-forward launches from phase 2.
+3. ``kernels``: K3, K6, K7, K8 and K9 (each at both flips) at the golden
+   graph's shapes on its real CSR, inputs from ``--seed``; each kernel
+   against its plain PyTorch version on the card, and timed (CUDA events
+   around 10 back-to-back calls, median of 10 such repeats, after warm-up)
+   beside its least possible time and, where one PyTorch call computes the
+   same function, that call's time.
 4. ``infer``: a synthetic dataset written in the dataset layout, then
-   ``gnnome_tpu_torch.cli infer`` on the card (the main path, with every
+   ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
    exact substring of the genome.
+5. ``train_step``: the full-width model (d=64, 8 layers) started from the
+   shipped weights.  On the golden subgraph, one symmetry-loss step on the
+   card against the port's CPU step (loss, every gradient, BN state); on the
+   whole golden graph as one unit, two steps from one state bitwise equal
+   (loss, logits, gradients, parameters after Adam), exactly 16 K7, 16 K3,
+   16 K8, 2 K6 and 2 K9 launches per step, no host synchronisation inside
+   a step (``torch.cuda.set_sync_debug_mode("error")``), the step time and
+   peak memory.
+6. ``train``: ``gnnome_tpu_torch.cli train`` on the card with the default
+   settings (the training path, counters set to 0 just before it): one
+   epoch on the golden graph written as a training dataset (train = valid);
+   resumed twice from its checkpoint, the two checkpoints bitwise equal;
+   then an overfit run on a small synthetic dataset (12 epochs, lr 1e-3)
+   whose last loss must be under 0.9x its first and whose saved model must
+   score an average precision above 0.75.
 
-Then one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
-the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
-the script exits non-zero; without a CUDA device it exits non-zero at once.
+Then one JSON line with every kernel's numbers (``launches`` from the
+training path of phase 6; the eval path's in ``launches_by_path``), the
+``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.
+Any failed phase raises and the script exits non-zero; without a CUDA
+device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -52,9 +70,11 @@ INFER_GRAPH = dict(n_reads=400, genome_len=50_000, read_len=900, seed=1,
                    with_sequences=True, false_edge_frac=0.0)
 INFER_LEN_THRESHOLD = 5000
 
-# H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak
+# H100 SXM data sheet: HBM3 bandwidth, float32 and float64 (non-tensor-core)
+# peaks
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12
 
 # tolerances, set from the float32 arithmetic, before any card run:
 # edge outputs repeat the plain version's per-op rounding (only sigmoid's
@@ -69,6 +89,28 @@ LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 PROB_ATOL = 1e-5
 JAX_GOLDEN_AP = 0.9992886          # the JAX package, CPU, same graph+weights
 AP_TOL = 1e-4
+# K7 / K8 global sums are float64 in another order than the plain version's:
+# within 1e-9 of the summed magnitudes.  K8's x is exact (the same
+# operations), d_eo within EDGE_ATOL (sigmoid), its node sums as K3's.
+SUM64_RTOL = 1e-9
+# one train step, card against the port's CPU step, full width, shipped
+# weights, dropout 0: the loss within 1e-5 relative; gradients elementwise
+# within the repository's gradient tolerance (tests/test_pallas_k4.py:81:
+# 8 layers of float32 matmuls summed in another order, forward and back).
+# A first bound of 1e-3 of each tensor's largest magnitude failed on the
+# gate biases B1, B2, B3, whose exact gradient is zero (BatchNorm removes
+# any constant added to the gate), so their values are rounding noise.
+# BN running statistics as the forward outputs.
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_ATOL, STEP_GRAD_RTOL = 2e-4, 5e-3
+STEP_STATE_ATOL, STEP_STATE_RTOL = 1e-5, 1e-4
+# the overfit run of tests/test_train.py:131-170
+OVERFIT_GRAPH = dict(n_reads=120, genome_len=10000, read_len=400, seed=12,
+                     with_sequences=True)
+OVERFIT_LOSS_DROP, OVERFIT_MIN_AP = 0.9, 0.75
+TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 16, "k6_score_gate": 2,
+                       "k7_gate_stats": 16, "k8_train_layer_bwd": 16,
+                       "k9_aggregate": 2}
 
 
 def check(cond: bool, what: str) -> None:
@@ -94,11 +136,7 @@ def make_infer_dataset(root: str):
     from gnnome_tpu_torch.graphs import synthetic_assembly_graph
 
     g, reads, _, genome = synthetic_assembly_graph(**INFER_GRAPH)
-    for sub in ("processed", "info"):
-        os.makedirs(os.path.join(root, "hifiasm", sub), exist_ok=True)
-    g.save(os.path.join(root, "hifiasm", "processed", "0.npz"))
-    reads.save(os.path.join(root, "hifiasm", "info", "0_reads.npz"))
-    return root, genome
+    return write_dataset(root, g, reads), genome
 
 
 def average_precision(probs, labels) -> float:
@@ -138,9 +176,36 @@ def cuda_ms(fn, reps: int = 10, n: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, flops64: float = 0.0):
+    """Least time in ms: the larger of bytes over the memory rate and the
+    float32 plus float64 operations over their peak rates."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / F32_FLOPS_PER_S + flops64 / F64_FLOPS_PER_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def golden_subgraph(g):
+    """The golden-subgraph recipe of tests/test_torch_model.py:104-118: the
+    band around node 0 plus bands around a few hard negatives."""
+    import numpy as np
+
+    hard = np.nonzero((g.y == 0) & (g.overlap_similarity > 0.95))[0]
+    keep = np.zeros(g.num_nodes, dtype=bool)
+    keep[:1600] = True
+    for eid in hard[:: max(1, len(hard) // 4)][:4]:
+        for v in (int(g.src[eid]), int(g.dst[eid])):
+            keep[max(0, v - 400): v + 400] = True
+    return g.node_subgraph(keep)[0]
+
+
+def write_dataset(root: str, graph, reads=None) -> str:
+    """``graph`` (and ``reads``) in the dataset layout under ``root``."""
+    for sub in ("processed", "info"):
+        os.makedirs(os.path.join(root, "hifiasm", sub), exist_ok=True)
+    graph.save(os.path.join(root, "hifiasm", "processed", "0.npz"))
+    if reads is not None:
+        reads.save(os.path.join(root, "hifiasm", "info", "0_reads.npz"))
+    return root
 
 
 # ------------------------------------------------------------------- phases
@@ -179,8 +244,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     N, E, d, H = g.n_nodes, g.n_edges, 64, 64
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def randn(*s):
-        return torch.randn(*s, device=dev, generator=gen)
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
 
     proj = randn(N, 5 * d)                  # [B1|A2|B2|A3|A1], as the model
     proj_u, proj_v = proj[:, :2 * d], proj[:, 2 * d:4 * d]
@@ -243,8 +308,123 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     k6.update(bound_ms=k6_bound, bound_by=k6_by, bytes=k6_bytes,
               tolerance={"atol": EDGE_ATOL})
     out["k6_score_gate"] = k6
+
+    # ---- training kernels: the model's [N, 4d] training projection
+    proj4 = randn(N, 4 * d)                 # [B1|A2|B2|A3]
+    tu, tv = proj4[:, :2 * d], proj4[:, 2 * d:]
+    d_e_out, d_sum_u, d_sum_v = randn(E, d), randn(N, 2 * d), randn(N, 2 * d)
+
+    def within64(got, ref, terms):
+        return bool(((got - ref).abs() <= SUM64_RTOL * terms + 1e-12).all())
+
+    k7 = {}
+    for flip in (False, True):
+        u, v, _, _ = g.roles(flip)
+        bu, bv = tu[:, :d], tv[:, :d]
+        got = K.k7_gate_stats(u, v, bu, bv, b3e)
+        ref = K.k7_gate_stats_plain(u, v, bu, bv, b3e)
+        x = (bu[u.long()] + bv[v.long()] + b3e).double()
+        ok = within64(got, ref, torch.cat([x.abs().sum(0), (x * x).sum(0)]))
+        check(ok, f"K7 flip={flip} sums within tolerance")
+        check(torch.equal(got, K.k7_gate_stats(u, v, bu, bv, b3e)),
+              f"K7 flip={flip} bitwise reproducible")
+        k7[f"flip={flip}"] = {
+            "max_abs_diff": float((got - ref).abs().max()),
+            "max_rel_diff": float(((got - ref).abs()
+                                   / ref.abs().clamp_min(1e-300)).max()),
+            "kernel_ms": cuda_ms(lambda: K.k7_gate_stats(u, v, bu, bv, b3e)),
+            "plain_ms": cuda_ms(lambda: K.k7_gate_stats_plain(u, v, bu, bv,
+                                                              b3e))}
+    # read the two [N, d] gate columns, b3e, u/v indices; write [2d] f64.
+    # Per (edge, feature): 2 f32 adds (the gate); 3 f64 operations (sum x,
+    # x*x, sum x*x)
+    k7_bytes = f4 * (2 * N * d + E * d) + i4 * 2 * E + 8 * 2 * d
+    k7_bound, k7_by = bound(k7_bytes, 2.0 * E * d, 3.0 * E * d)
+    k7.update(bound_ms=k7_bound, bound_by=k7_by, bytes=k7_bytes,
+              tolerance={"sum64_rtol_of_magnitudes": SUM64_RTOL})
+    out["k7_gate_stats"] = k7
+
+    k8 = {}
+    for flip in (False, True):
+        u, v, v_csr, u_csr = g.roles(flip)
+        args = (d_sum_u, d_sum_v, tu, tv, b3e, e_in, d_e_out, bn)
+        got = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
+        ref = K.k8_train_layer_bwd_plain(u, v, *args)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], ref[0]), f"K8 flip={flip} x exact")
+        d_eo_diff = float((got[1] - ref[1]).abs().max())
+        check(d_eo_diff <= EDGE_ATOL, f"K8 flip={flip} d_eo diff {d_eo_diff}")
+        for a_, b_ in zip(got[2:4], ref[2:4]):
+            ok = bool(((a_ - b_).abs() <= SUM_ATOL + SUM_RTOL * b_.abs()).all())
+            check(ok, f"K8 flip={flip} node sums within tolerance")
+        deo = ref[1].double().abs()
+        ok = within64(got[4], ref[4], torch.cat(
+            [deo.sum(0), (deo * ref[0].double().abs()).sum(0)]))
+        check(ok, f"K8 flip={flip} global sums within tolerance")
+        again = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"K8 flip={flip} bitwise reproducible")
+        k8[f"flip={flip}"] = {
+            "max_abs_diff": max(float((p - q).abs().max())
+                                for p, q in zip(got[:4], ref[:4])),
+            "max_abs_diff_d_eo": d_eo_diff,
+            "kernel_ms": cuda_ms(lambda: K.k8_train_layer_bwd(
+                u, v, v_csr, u_csr, *args)),
+            "plain_ms": cuda_ms(lambda: K.k8_train_layer_bwd_plain(
+                u, v, *args))}
+    # read d_sum_u/v, proj_u/v ([N, 2d] each), b3e, e_in, d_e_out, bn, u/v
+    # indices, both row-pointer arrays and one slot permutation; write x,
+    # d_eo, node_u/v ([N, 3d]) and [2d] f64.  Per (edge, feature) about 49
+    # float32 operations over the two passes (gate 2, BN 4 twice, relu and
+    # residual 2 twice, sigmoid ~4 twice, d_sigma 7, d_eo 4, d_y 1, three
+    # sums of 2, 2 and 1 twice) and 3 float64 (sum d_y, d_y*x, its sum)
+    k8_bytes = (f4 * (4 * N * 2 * d + 3 * E * d + 4 * d + 2 * E * d
+                      + 2 * N * 3 * d) + 8 * 2 * d
+                + i4 * (3 * E + 2 * (N + 1)))
+    k8_bound, k8_by = bound(k8_bytes, 49.0 * E * d, 3.0 * E * d)
+    k8.update(bound_ms=k8_bound, bound_by=k8_by, bytes=k8_bytes,
+              tolerance={"x": "exact", "d_eo_atol": EDGE_ATOL,
+                         "sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL,
+                         "sum64_rtol_of_magnitudes": SUM64_RTOL})
+    out["k8_train_layer_bwd"] = k8
+
+    k9 = {}
+    pay = torch.relu(randn(E, H))           # dz * (z > 0): about half zeros
+    for flip in (False, True):
+        u, v, v_csr, u_csr = g.roles(flip)
+        got = K.k9_aggregate(u, v, v_csr, u_csr, pay)
+        ref = K.k9_aggregate_plain(u, v, pay, N)
+        torch.cuda.synchronize()
+        for a_, b_ in zip(got, ref):
+            ok = bool(((a_ - b_).abs() <= SUM_ATOL + SUM_RTOL * b_.abs()).all())
+            check(ok, f"K9 flip={flip} sums within tolerance")
+        again = K.k9_aggregate(u, v, v_csr, u_csr, pay)
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"K9 flip={flip} bitwise reproducible")
+        # the one PyTorch call for the same sums: index_add_ over the
+        # stacked index [u; v + N] and payload [pay; pay] (built outside
+        # the timing); it adds with atomics, so its sums vary run to run
+        uv = torch.cat([u.long(), v.long() + N])
+        pay2 = torch.cat([pay, pay])
+        acc = torch.zeros(2 * N, H, device=dev)
+        k9[f"flip={flip}"] = {
+            "max_abs_diff": max(float((a_ - b_).abs().max())
+                                for a_, b_ in zip(got, ref)),
+            "kernel_ms": cuda_ms(lambda: K.k9_aggregate(u, v, v_csr, u_csr,
+                                                        pay)),
+            "plain_ms": cuda_ms(lambda: K.k9_aggregate_plain(u, v, pay, N)),
+            "library_ms": cuda_ms(lambda: acc.zero_().index_add_(0, uv,
+                                                                 pay2))}
+    # read pay, both row-pointer arrays and one slot permutation; write the
+    # two [N, H] sums; one add per (edge, feature) and endpoint
+    k9_bytes = f4 * (E * H + 2 * N * H) + i4 * (E + 2 * (N + 1))
+    k9_bound, k9_by = bound(k9_bytes, 2.0 * E * H)
+    k9.update(bound_ms=k9_bound, bound_by=k9_by, bytes=k9_bytes,
+              tolerance={"sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL},
+              library_call="torch.Tensor.index_add_ on [u; v+N], [pay; pay]")
+    out["k9_aggregate"] = k9
     emit("kernels", graph={"nodes": N, "edges": E}, d=d, H=H, seed=seed,
-         library_call=None, **out)
+         **out)
     return out
 
 
@@ -284,7 +464,8 @@ def phase_model(dev):
         runs = [model(g, x, e).reshape(-1) for _ in range(2)]
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        check(counts == {"k3_edge_stage": 16, "k6_score_gate": 2},
+        check(counts == {**{k: 0 for k in K.KERNELS},
+                         "k3_edge_stage": 16, "k6_score_gate": 2},
               f"per-forward launches (2 forwards): {counts}")
         check(torch.equal(runs[0], runs[1]), "two card runs bitwise equal")
         fwd_ms = cuda_ms(lambda: model(g, x, e), reps=5, n=5)
@@ -332,8 +513,9 @@ def phase_infer():
     wall_s = time.perf_counter() - t0
     counts = K.launch_counts()
     check(summary["device"].startswith("cuda"), "infer ran on the card")
-    check(counts == {"k3_edge_stage": 8, "k6_score_gate": 1},
-          f"main-path launches {counts}")
+    check(counts == {**{k: 0 for k in K.KERNELS},
+                     "k3_edge_stage": 8, "k6_score_gate": 1},
+          f"eval-path launches {counts}")
     fasta = os.path.join(savedir, "assembly", "0_assembly.fasta")
     contigs = list(read_fastx(fasta))
     top = max(contigs, key=lambda c: len(c.seq))
@@ -345,6 +527,204 @@ def phase_infer():
          peak_rss_mb=summary["peak_rss_mb"], num_contigs=len(contigs),
          longest_contig=len(top.seq), exact_substring=exact,
          genome_len=len(genome), launches=counts)
+    return counts
+
+
+def _step_result(model, loss, logits):
+    return {"loss": loss.detach().clone(), "logits": logits.detach().clone(),
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()},
+            "params": {n: p.detach().clone()
+                       for n, p in model.named_parameters()},
+            "buffers": {n: b.detach().clone()
+                        for n, b in model.named_buffers()}}
+
+
+def phase_train_step(dev):
+    """Full-width training steps from the shipped weights: card vs CPU on
+    the golden subgraph; bitwise reproducibility, launches, time and memory
+    on the whole golden graph."""
+    import numpy as np
+    import torch
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.infer import load_model
+    from gnnome_tpu_torch.models import load_model_weights
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.train.step import (host_units, make_example,
+                                             make_optimizer, train_step)
+
+    params, state = load_model_weights(WEIGHTS)
+    golden = AssemblyGraph.load(GOLDEN)
+
+    def one_step(graph, cfg, device, seed):
+        (unit,) = host_units(graph, cfg, np.random.default_rng(0))
+        ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
+                          unit.src, unit.dst, unit.n_nodes, device)
+        model = load_model(params, state, cfg, device)
+        opt = make_optimizer(model, cfg.train.lr)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        loss, logits = train_step(model, opt, ex, 4.0, cfg, gen)
+        return _step_result(model, loss, logits), (model, opt, ex, gen)
+
+    cfg = Config()
+    cfg.train.masking = False
+    cfg.train.num_nodes_per_cluster = 10 ** 9         # one unit per graph
+    cfg.model.dropout = 0.0                            # card vs CPU
+    sub = golden_subgraph(golden)
+    t0 = time.perf_counter()
+    ref, _ = one_step(sub, cfg, torch.device("cpu"), 0)
+    cpu_s = time.perf_counter() - t0
+    got, _ = one_step(sub, cfg, dev, 0)
+    loss_c, loss_g = float(ref["loss"]), float(got["loss"])
+    check(abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c),
+          f"step loss card {loss_g} vs CPU {loss_c}")
+    grad_diff, grad_max, bad = {}, {}, []
+    for name, r in ref["grads"].items():
+        delta = (got["grads"][name].cpu() - r).abs()
+        grad_diff[name] = float(delta.max())
+        grad_max[name] = float(r.abs().max())
+        if not bool((delta <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * r.abs()).all()):
+            bad.append(name)
+    worst = max(grad_diff, key=grad_diff.get)
+    for name, r in ref["buffers"].items():
+        b_ = got["buffers"][name].cpu()
+        if r.dtype.is_floating_point:
+            ok = bool(((b_ - r).abs() <= STEP_STATE_ATOL
+                       + STEP_STATE_RTOL * r.abs()).all())
+        else:
+            ok = torch.equal(b_, r)
+        check(ok, f"BN state {name} card vs CPU")
+    check(not bad, f"gradients card vs CPU outside tolerance: {bad} "
+                   f"{[(grad_diff[n], grad_max[n]) for n in bad]}")
+
+    # the whole golden graph as one unit, default dropout 0.2
+    cfg.model.dropout = 0.2
+    K.reset_launch_counts()
+    a, (model, opt, ex, gen) = one_step(golden, cfg, dev, 5)
+    per_step = K.launch_counts()
+    b, _ = one_step(golden, cfg, dev, 5)
+    check(per_step == TRAIN_STEP_LAUNCHES, f"launches per step {per_step}")
+    for key in ("loss", "logits"):
+        check(torch.equal(a[key], b[key]), f"two card steps: {key} bitwise")
+    for key in ("grads", "params", "buffers"):
+        check(all(torch.equal(a[key][n], b[key][n]) for n in a[key]),
+              f"two card steps: {key} bitwise")
+    check(bool(torch.isfinite(a["logits"]).all())
+          and a["logits"].shape == (golden.num_edges,),
+          "finite logits of shape [E]")
+    # the step never waits for the device: an operation that would
+    # synchronise with the host raises in this mode
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(model, opt, ex, 4.0, cfg, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: train_step(model, opt, ex, 4.0, cfg, gen),
+                      reps=5, n=3, warmup=2)
+    emit("train_step", subgraph={"nodes": sub.num_nodes,
+                                 "edges": sub.num_edges},
+         loss_card=loss_g, loss_cpu=loss_c, cpu_step_s=cpu_s,
+         max_grad_diff={"tensor": worst, "abs": grad_diff[worst],
+                        "tensor_max_abs": grad_max[worst]},
+         max_grad_diff_by_tensor=grad_diff,
+         graph={"nodes": golden.num_nodes, "edges": golden.num_edges},
+         launches_per_step=per_step, bitwise_reproducible=True,
+         host_synchronisations_in_step=0,
+         step_ms=step_ms,
+         max_memory_allocated_mb=torch.cuda.max_memory_allocated(dev) / 2**20,
+         tolerance={"loss_rtol": STEP_LOSS_RTOL,
+                    "grad_atol": STEP_GRAD_ATOL, "grad_rtol": STEP_GRAD_RTOL,
+                    "state_atol": STEP_STATE_ATOL,
+                    "state_rtol": STEP_STATE_RTOL})
+    return per_step
+
+
+def phase_train():
+    """The training path: ``cli train`` on the card, counters from 0."""
+    import numpy as np
+
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.infer import score_graph
+    from gnnome_tpu_torch.models import load_model_weights
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.train.metrics import get_aps
+
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    golden = AssemblyGraph.load(GOLDEN)
+    ds = write_dataset(os.path.join(root, "golden"), golden)
+    paths = ["--set", f"paths.checkpoints_path={root}/ckpt",
+             "--set", f"paths.models_path={root}/models"]
+    common = ["train", "--train", ds, "--valid", ds, "--asm", "hifiasm",
+              "--name", "golden", *paths]
+
+    def log_of(name):
+        with open(os.path.join(root, "ckpt", f"log_{name}_seed1.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    model_path = cli.main([*common, "--set", "train.num_epochs=1"])
+    wall_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    # U training units (16 K7, 16 K3, 16 K8, 2 K6, 2 K9 each) and V
+    # validation units (16 K3, 2 K6 each)
+    units = counts["k9_aggregate"] // 2
+    check(units > 1 and counts["k7_gate_stats"] == 16 * units
+          and counts["k8_train_layer_bwd"] == 16 * units,
+          f"training launches {counts}")
+    v_units = (counts["k3_edge_stage"] - 16 * units) // 16
+    check(v_units > 1 and counts["k3_edge_stage"] == 16 * (units + v_units)
+          and counts["k6_score_gate"] == 2 * (units + v_units),
+          f"validation launches {counts}")
+    log = log_of("golden")
+    check([r["epoch"] for r in log] == [0], "one epoch logged")
+    check(all(np.isfinite(log[0][k]) for k in ("train/loss", "valid/loss")),
+          "finite losses")
+    check(os.path.isfile(model_path), "best model saved")
+
+    ckpt = os.path.join(root, "ckpt")
+    resumed = []
+    for i in range(2):
+        cli.main([*common, "--resume", "--set", "train.num_epochs=2"])
+        dst = os.path.join(ckpt, f"resumed_{i}.npz")
+        os.replace(os.path.join(ckpt, "ckpt_golden_seed1_resumed-2.npz"), dst)
+        resumed.append(dst)
+    with np.load(resumed[0]) as a, np.load(resumed[1]) as b:
+        same = a.files == b.files and all(np.array_equal(a[k], b[k])
+                                          for k in a.files)
+        n_arrays = len(a.files)
+    check(same, "two resumes from one checkpoint bitwise equal")
+
+    g, reads, _, _ = synthetic_assembly_graph(**OVERFIT_GRAPH)
+    small = write_dataset(os.path.join(root, "small"), g, reads)
+    t0 = time.perf_counter()
+    best = cli.main(["train", "--train", small, "--valid", small, "--asm",
+                     "hifiasm", "--name", "overfit", "--overfit", *paths,
+                     "--set", "train.num_epochs=12", "--set", "train.lr=1e-3",
+                     "--set", "train.masking=false",
+                     "--set", "train.num_nodes_per_cluster=10000"])
+    overfit_s = time.perf_counter() - t0
+    losses = [r["train/loss"] for r in log_of("overfit")]
+    check(losses[-1] < OVERFIT_LOSS_DROP * losses[0],
+          f"overfit loss {losses[0]} -> {losses[-1]}")
+    ap = get_aps(score_graph(g, *load_model_weights(best), Config()), g.y)
+    check(ap > OVERFIT_MIN_AP, f"overfit AP {ap}")
+    emit("train", graph={"nodes": golden.num_nodes,
+                         "edges": golden.num_edges},
+         epoch_wall_s=wall_s, units={"train": units, "valid": v_units},
+         launches=counts, log=log[0], resume_checkpoint_arrays=n_arrays,
+         resume_bitwise_identical=True,
+         overfit={"graph": {k: v for k, v in OVERFIT_GRAPH.items()},
+                  "nodes": g.num_nodes, "edges": g.num_edges,
+                  "losses": losses, "ap": ap, "wall_s": overfit_s},
+         tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
     return counts
 
 
@@ -366,23 +746,31 @@ def main(argv=None) -> int:
     phase_env()
     per_forward = phase_model(dev)
     k = phase_kernels(args.seed, dev, per_forward)
-    launches = phase_infer()
+    eval_launches = phase_infer()
+    phase_train_step(dev)
+    launches = phase_train()
 
-    def row(name, src, replaces, r):
+    def row(name, src, replaces):
+        r = k[name]
         flip0 = r["flip=False"]
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
+        return {"name": name, "route": "cuda",
+                "source": f"gnnome_tpu_torch/csrc/{src}",
+                "replaces": f"gnnome_tpu/ops/pallas_kernels.py:{replaces}",
+                "launches": launches[name],
+                "launches_by_path": {"infer": eval_launches[name],
+                                     "train": launches[name]},
                 "max_abs_err": max(r[f]["max_abs_diff"]
                                    for f in ("flip=False", "flip=True")),
                 "ms": flip0["kernel_ms"], "plain_ms": flip0["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None}
+                "library_ms": flip0.get("library_ms")}
 
     print(json.dumps({"kernels": [
-        row("k3_edge_stage", "gnnome_tpu_torch/csrc/k3_edge_stage.cu",
-            "gnnome_tpu/ops/pallas_kernels.py:355", k["k3_edge_stage"]),
-        row("k6_score_gate", "gnnome_tpu_torch/csrc/k6_score_gate.cu",
-            "gnnome_tpu/ops/pallas_kernels.py:709", k["k6_score_gate"]),
+        row("k3_edge_stage", "k3_edge_stage.cu", 355),
+        row("k6_score_gate", "k6_score_gate.cu", 709),
+        row("k7_gate_stats", "k7_gate_stats.cu", 457),
+        row("k8_train_layer_bwd", "k8_train_layer_bwd.cu", 604),
+        row("k9_aggregate", "k9_aggregate.cu", 771),
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

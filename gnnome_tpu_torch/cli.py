@@ -1,11 +1,14 @@
 """gnnome-tpu-torch command-line interface.
 
-The ``infer`` subcommand of ``gnnome_tpu.cli`` with the same flags:
+The ``infer`` and ``train`` subcommands of ``gnnome_tpu.cli`` with the same
+flags:
 
     python -m gnnome_tpu_torch.cli infer --data DS --asm hifiasm --out DS/hifiasm \\
         --model weights/weights.npz [--set compute.device=cpu] [--set SEC.KEY=VAL]
+    python -m gnnome_tpu_torch.cli train --train DS --valid DS --asm hifiasm \\
+        [--name NAME] [--overfit] [--resume] [--dropout P] [--seed N] [--set ...]
 
-It runs on the GPU unless ``--set compute.device=cpu`` asks for the CPU.
+Both run on the GPU unless ``--set compute.device=cpu`` asks for the CPU.
 The other subcommands of ``gnnome_tpu.cli`` are not ported yet.
 """
 from __future__ import annotations
@@ -56,9 +59,23 @@ def cmd_infer(args):
         return run_inference(args.data, args.model, args.asm, args.out, cfg)
 
 
+def cmd_train(args):
+    """Train the model (reference train.py:497-512)."""
+    cfg = _load_cfg(args)
+    if args.dropout is not None:
+        cfg.model.dropout = args.dropout
+    if args.seed is not None:
+        cfg.train.seed = args.seed
+    from .train.loop import train
+    return train(train_path=args.train, valid_path=args.valid,
+                 assembler=args.asm, out_name=args.name,
+                 overfit=args.overfit, resume=args.resume, cfg=cfg)
+
+
 def main(argv=None):
     """Parse ``argv`` and run the subcommand; returns its result (for
-    ``infer``, the ``run_inference`` summary)."""
+    ``infer`` the ``run_inference`` summary, for ``train`` the best-model
+    path)."""
     parser = argparse.ArgumentParser(prog="gnnome-tpu-torch",
                                      description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="command", required=True)
@@ -72,6 +89,18 @@ def main(argv=None):
                    help="write a torch.profiler trace to DIR/trace.json")
     _add_common(p)
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("train", help="train the edge-scoring model")
+    p.add_argument("--train", required=True)
+    p.add_argument("--valid", required=True)
+    p.add_argument("--asm", required=True)
+    p.add_argument("--name", default=None)
+    p.add_argument("--overfit", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--dropout", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    _add_common(p)
+    p.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -98,13 +98,14 @@ class ComputeConfig:
 # JAX-package compute knobs that the port does not carry, with the reason
 _DROPPED_COMPUTE = {
     "backend": "the tensor's device chooses kernel (cuda) or plain version (cpu)",
-    "mesh": "multi-GPU inference is not ported yet",
+    "mesh": "multi-GPU inference and training are not ported yet",
     "dtype": "the port runs in float32; bfloat16 is not ported yet",
     "matmul_precision": "matmuls run in full float32 (TF32 disabled)",
     "edge_pad_multiple": "edges are never padded",
     "node_pad_multiple": "nodes are never padded",
     "bucket_growth": "no shape buckets: PyTorch runs eagerly",
-    "remat": "training is not ported yet",
+    "remat": "the training edge stage keeps only small residuals and "
+             "recomputes its projections; there is nothing to rematerialise",
     "scheduler": "an XLA option with no PyTorch counterpart",
     "donate_state": "an XLA option with no PyTorch counterpart",
 }

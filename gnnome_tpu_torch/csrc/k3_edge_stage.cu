@@ -40,17 +40,16 @@
 // the identity (slots are dst-sorted), so v_perm is null; flip=True swaps
 // the two CSRs.  Arithmetic uses explicit round-to-nearest intrinsics so the
 // compiler does not contract into FMAs: results match the plain PyTorch
-// version's per-op rounding.
+// version's per-op rounding (csrc/edge_math.cuh, shared with K7 and K8).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_math.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-    return 1.0f / (1.0f + expf(-x));
-}
+using gn::kWarpsPerBlock;
+using gn::sigmoid_f32;
 
 // FPL = features per lane: handles any d <= 32 * FPL.
 template <int FPL>
@@ -88,9 +87,8 @@ k3_pass_v(int n_nodes, int d, const int* __restrict__ v_ptr,
         for (int k = 0; k < FPL; ++k) {
             const int f = lane + 32 * k;
             if (f < d) {
-                const float x = __fadd_rn(__fadd_rn(pu[f], b2[k]), b3e[row + f]);
-                const float xn = __fmul_rn(__fsub_rn(x, mu[k]), rs[k]);
-                const float y = __fadd_rn(__fmul_rn(xn, ga[k]), be[k]);
+                const float x = gn::gate_x(pu[f], b2[k], b3e[row + f]);
+                const float y = gn::bn_apply(x, mu[k], rs[k], ga[k], be[k]);
                 const float eo = __fadd_rn(fmaxf(y, 0.0f), e_in[row + f]);
                 e_out[row + f] = eo;
                 const float sg = sigmoid_f32(eo);

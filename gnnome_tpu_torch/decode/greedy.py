@@ -253,7 +253,11 @@ def decode_greedy(graph, scores: np.ndarray, cfg: DecodeConfig | None = None,
 
     ckpt_file = (os.path.join(checkpoint_dir, checkpoint_name)
                  if checkpoint_dir else None)
+    # True once this run has read or written ckpt_file: only then is the
+    # file this run's to delete when the decode completes
+    own_ckpt = False
     if ckpt_file and cfg.load_checkpoint and os.path.isfile(ckpt_file):
+        own_ckpt = True
         with open(ckpt_file, "rb") as f:
             ck = pickle.load(f)
         result.walks = ck["walks"]
@@ -381,9 +385,10 @@ def decode_greedy(graph, scores: np.ndarray, cfg: DecodeConfig | None = None,
                     with open(tmp, "wb") as f:
                         pickle.dump(ck, f)
                     os.replace(tmp, ckpt_file)
+                    own_ckpt = True
             if int(status[0]) != 0:
                 break
-        _remove_completed_ckpt(ckpt_file)
+        _remove_completed_ckpt(ckpt_file if own_ckpt else None)
         return result
 
     # native_sample never reaches here — the chunked gn_decode_chunk driver
@@ -474,13 +479,16 @@ def decode_greedy(graph, scores: np.ndarray, cfg: DecodeConfig | None = None,
             with open(tmp, "wb") as f:
                 pickle.dump(ck, f)
             os.replace(tmp, ckpt_file)
+            own_ckpt = True
 
-    _remove_completed_ckpt(ckpt_file)
+    _remove_completed_ckpt(ckpt_file if own_ckpt else None)
     return result
 
 
 def _remove_completed_ckpt(ckpt_file):
     """A finished decode must not leave its resume snapshot behind — a
-    re-run would otherwise 'resume' an already-complete result."""
+    re-run would otherwise 'resume' an already-complete result.  Callers
+    pass None for a file this run neither read nor wrote (another run's
+    snapshot, present while ``load_checkpoint`` is off): it stays."""
     if ckpt_file and os.path.isfile(ckpt_file):
         os.remove(ckpt_file)

@@ -1,13 +1,20 @@
-"""Eval-mode BatchNorm with the JAX package's arithmetic
-(``gnnome_tpu/models/norm.py:64-68``), over ``nn.BatchNorm1d`` modules so the
-state-dict names and buffers stay the reference's.  Training-mode
-statistics are not ported yet."""
+"""BatchNorm with the JAX package's arithmetic (``gnnome_tpu/models/norm.py``),
+over ``nn.BatchNorm1d`` modules so the state-dict names and buffers stay the
+reference's.
+
+* eval: normalise with the running statistics (norm.py:64-68);
+* training (norm.py:47-63): normalise with the biased batch variance
+  (two-pass), update the running statistics with the unbiased variance at
+  momentum 0.1, ``repeat_updates`` times, and advance
+  ``num_batches_tracked`` as often (the JAX ``count``).
+"""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -23,3 +30,35 @@ def batch_norm_rows(bn: nn.BatchNorm1d) -> torch.Tensor:
     near the mean (see csrc/k3_edge_stage.cu)."""
     return torch.stack([bn.running_mean, torch.rsqrt(bn.running_var + BN_EPS),
                         bn.weight, bn.bias])
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor,
+                         unbiased_var: torch.Tensor,
+                         repeat_updates: int = 1) -> None:
+    """``running = 0.9 * running + 0.1 * batch``, ``repeat_updates`` times
+    (the shared ``bn_e`` of the reference advances twice per layer,
+    gated_gcn_full.py:106,119); ``num_batches_tracked`` advances as often."""
+    rm, rv = bn.running_mean, bn.running_var
+    for _ in range(repeat_updates):
+        rm = (1.0 - BN_MOMENTUM) * rm + BN_MOMENTUM * mean
+        rv = (1.0 - BN_MOMENTUM) * rv + BN_MOMENTUM * unbiased_var
+    bn.running_mean.copy_(rm)
+    bn.running_var.copy_(rv)
+    bn.num_batches_tracked.add_(repeat_updates)
+
+
+def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,
+                     repeat_updates: int = 1) -> torch.Tensor:
+    """Training-mode BatchNorm over the rows of ``x`` [n, d]: batch mean,
+    biased variance (two-pass) normalises, gradients flow through both;
+    the running statistics are updated (no gradient)."""
+    n = x.shape[0]
+    mean = x.sum(0) / n
+    var = ((x - mean) ** 2).sum(0) / n
+    inv = torch.rsqrt(var + BN_EPS)
+    y = (x - mean) * inv
+    update_running_stats(bn, mean.detach(),
+                         var.detach() * (n / (n - 1) if n > 1 else 1.0),
+                         repeat_updates)
+    return y * bn.weight + bn.bias

@@ -1,19 +1,26 @@
-"""SymGatedGCN edge-scoring model as an ``nn.Module`` (eval forward).
+"""SymGatedGCN edge-scoring model as an ``nn.Module``.
 
 The PyTorch counterpart of ``gnnome_tpu/models/sym_gated_gcn.py``'s fused
-eval path (reference models/full_graph.py:9-30, layers/gated_gcn_full.py:
+paths (reference models/full_graph.py:9-30, layers/gated_gcn_full.py:
 82-142, layers/score_predictor.py:5-24).  Submodule and parameter names are
 the reference's (``linear1_node`` ... ``gnn.convs.{i}.A_1`` ... ``bn_h``,
 ``bn_e``, ``predictor.W1``), so its ``weights.pt`` loads directly and
 ``weights/weights.npz`` loads through ``models/convert.py``.
 
-Per layer, as in the JAX package:
+Per layer in eval mode (``.eval()``, which ``__init__`` sets), as in the
+JAX package:
 
 * one fused node projection ``h @ [B1|A2|B2|A3|A1]`` (a plain matmul);
 * ``b3e = e @ B3 + b``, then the whole edge stage in kernel K3 (gate,
   eval BatchNorm, relu, residual, sigmoid, both gated sums);
 * the node stage: gated means with ``GATE_EPS``, ``A1h + h_fwd + h_bwd``,
   eval BatchNorm, relu, residual.
+
+In training mode (``.train()``; sym_gated_gcn.py:185-258) the edge stage is
+``ops.message.train_edge_stage`` (K7 batch statistics, K3 with them, K8 in
+the backward; ``bn_e``'s running statistics advance twice), ``A1h`` is its
+own matmul, the node BatchNorm uses batch statistics, and dropout draws
+its mask from the caller's ``torch.Generator``.
 
 The predictor moves the first layer's endpoint matmuls into node space
 (``puv = [h @ W1[:d] | h @ W1[d:2d]]``, ``be = e @ W1[2d:] + b1``), gathers
@@ -28,9 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.graph_tensors import DeviceGraph
-from ..ops.message import eval_edge_stage, score_gate
-from .nn import mlp2
-from .norm import batch_norm_eval, batch_norm_rows
+from ..ops.message import eval_edge_stage, score_gate, train_edge_stage
+from .nn import dropout, mlp2
+from .norm import (batch_norm_eval, batch_norm_rows, batch_norm_train,
+                   update_running_stats)
 
 GATE_EPS = 1e-6  # gated-mean denominator epsilon (reference gated_gcn_full.py:114)
 
@@ -43,7 +51,10 @@ class SymGatedGCNLayer(nn.Module):
         self.bn_h = nn.BatchNorm1d(d)
         self.bn_e = nn.BatchNorm1d(d)
 
-    def forward(self, g: DeviceGraph, h, e, flip: bool):
+    def forward(self, g: DeviceGraph, h, e, flip: bool, drop_rate: float = 0.0,
+                generator=None):
+        if self.training:
+            return self._forward_train(g, h, e, flip, drop_rate, generator)
         d = h.shape[1]
         # column groups: [B1|A2] (u endpoint), [B2|A3] (v endpoint), [A1]
         lins = (self.B_1, self.A_2, self.B_2, self.A_3, self.A_1)
@@ -56,6 +67,24 @@ class SymGatedGCNLayer(nn.Module):
         h_bwd = sum_u[:, :d] / (sum_u[:, d:] + GATE_EPS)
         h_new = proj[:, 4 * d:] + h_fwd + h_bwd
         h_new = torch.relu(batch_norm_eval(self.bn_h, h_new)) + h
+        return h_new, e_out
+
+    def _forward_train(self, g: DeviceGraph, h, e, flip: bool,
+                       drop_rate: float, generator):
+        d = h.shape[1]
+        lins = (self.B_1, self.A_2, self.B_2, self.A_3)
+        w_uv = torch.cat([m.weight for m in lins]).t()     # [d, 4d], [in, out]
+        b_uv = torch.cat([m.bias for m in lins])
+        e_out, sum_v, sum_u, mean, unbiased = train_edge_stage(
+            g, flip, h, w_uv, b_uv, self.B_3.weight.t(), self.B_3.bias, e,
+            self.bn_e.weight, self.bn_e.bias)
+        update_running_stats(self.bn_e, mean, unbiased, repeat_updates=2)
+        h_fwd = sum_v[:, :d] / (sum_v[:, d:] + GATE_EPS)
+        h_bwd = sum_u[:, :d] / (sum_u[:, d:] + GATE_EPS)
+        h_new = self.A_1(h) + h_fwd + h_bwd
+        h_new = torch.relu(batch_norm_train(self.bn_h, h_new)) + h
+        if drop_rate > 0.0:
+            h_new = dropout(h_new, drop_rate, generator)
         return h_new, e_out
 
 
@@ -84,16 +113,19 @@ class ScorePredictor(nn.Module):
 
 
 class SymGatedGCN(nn.Module):
-    """Eval-only SymGatedGCN.  ``forward(g, x, e, flip)`` takes node features
-    ``x`` [N, node_features] and host-order edge features ``e``
-    [E, edge_features] on ``g``'s device and returns host-order logits
-    [E, 1].  Calling it in training mode raises: the training forward is not
-    ported yet."""
+    """SymGatedGCN.  ``forward(g, x, e, flip)`` takes node features ``x``
+    [N, node_features] and host-order edge features ``e`` [E, edge_features]
+    on ``g``'s device and returns host-order logits [E, 1]
+    (``slot_io=True``: ``e`` and the logits in ``g``'s slot order).  It is
+    built in eval mode; ``.train()`` selects the training forward, whose
+    dropout (rate ``dropout``) needs a ``generator``."""
 
     def __init__(self, node_features: int = 2, edge_features: int = 2,
                  hidden_features: int = 64, hidden_ne_features: int = 16,
-                 num_layers: int = 8, hidden_edge_scores: int = 64):
+                 num_layers: int = 8, hidden_edge_scores: int = 64,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.linear1_node = nn.Linear(node_features, hidden_ne_features)
         self.linear2_node = nn.Linear(hidden_ne_features, hidden_features)
         self.linear1_edge = nn.Linear(edge_features, hidden_ne_features)
@@ -112,14 +144,45 @@ class SymGatedGCN(nn.Module):
                 "only sym_gatedgcn with batch normalization is ported")
         return cls(cfg.node_features, cfg.edge_features, cfg.dim_latent,
                    cfg.hidden_ne_features, cfg.num_gnn_layers,
-                   cfg.hidden_edge_scores)
+                   cfg.hidden_edge_scores, cfg.dropout)
 
-    def forward(self, g: DeviceGraph, x, e, flip: bool = False):
-        if self.training:
-            raise NotImplementedError("the SymGatedGCN training forward is "
-                                      "not ported yet; call .eval()")
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> "SymGatedGCN":
+        """Fresh weights drawn from a CPU ``torch.Generator`` seeded with
+        ``seed``: every linear weight and bias ~ U(+-1/sqrt(fan_in)) (the
+        torch ``nn.Linear`` default and JAX ``linear_init``); BatchNorm
+        scale 1, shift 0, running mean 0, running var 1, count 0."""
+        gen = torch.Generator().manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / m.in_features ** 0.5
+                for t in (m.weight, m.bias):
+                    t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound)
+                            - bound)
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+        return self
+
+    def forward(self, g: DeviceGraph, x, e, flip: bool = False,
+                generator=None, slot_io: bool = False):
+        drop = self.dropout if self.training else 0.0
+        if drop > 0.0 and generator is None:
+            raise ValueError("training-mode dropout needs a torch.Generator")
         h = mlp2(self.linear1_node, self.linear2_node, x)
-        e = g.edges_to_slots(mlp2(self.linear1_edge, self.linear2_edge, e))
+        e = mlp2(self.linear1_edge, self.linear2_edge, e)
+        if not slot_io:
+            e = g.edges_to_slots(e)
         for conv in self.gnn.convs:
-            h, e = conv(g, h, e, flip)
-        return g.slots_to_edges(self.predictor(g, h, e, flip))
+            h, e = conv(g, h, e, flip, drop, generator)
+        logits = self.predictor(g, h, e, flip)
+        return logits if slot_io else g.slots_to_edges(logits)
+
+    def forward_pair(self, g: DeviceGraph, x, x_rev, e, generator=None,
+                     slot_io: bool = False):
+        """Both symmetry-loss passes (reference train.py:159-185), one after
+        the other: ``flip=False`` on ``x``, then ``flip=True`` on ``x_rev``,
+        BatchNorm running statistics chained through the module.  The JAX
+        package's ``forward_dual`` documents its fused form as equal to
+        these two passes.  Returns ``(logits_org, logits_rev)``."""
+        return (self(g, x, e, False, generator, slot_io),
+                self(g, x_rev, e, True, generator, slot_io))

@@ -1,5 +1,9 @@
-"""Hand-written CUDA kernels K3 and K6, their plain PyTorch versions, and the
-build that turns ``csrc/*.cu`` into one shared library.
+"""Hand-written CUDA kernels K3, K6, K7, K8 and K9, their plain PyTorch
+versions, and the build that turns ``csrc/*.cu`` into one shared library.
+
+K3 (edge stage) and K6 (score gate) carry the forward; K7 (gate batch
+statistics), K8 (edge-stage adjoint) and K9 (score-gate adjoint) carry
+training (``ops/message.py`` wraps them in ``torch.autograd.Function``s).
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper counts
@@ -27,7 +31,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
-SOURCES = ("k3_edge_stage.cu", "k6_score_gate.cu")
+SOURCES = ("k3_edge_stage.cu", "k6_score_gate.cu", "k7_gate_stats.cu",
+           "k8_train_layer_bwd.cu", "k9_aggregate.cu")
+HEADERS = ("edge_math.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -52,7 +58,8 @@ def _stale() -> bool:
     if not os.path.isfile(LIB_PATH):
         return True
     t = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > t for s in SOURCES)
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > t
+               for s in SOURCES + HEADERS)
 
 
 def build_kernels(force: bool = False) -> str:
@@ -106,6 +113,23 @@ def _library():
                 P, P, P, P]                  # e_out, sum_v, sum_u, stream
             lib.gn_k6_score_gate.restype = I
             lib.gn_k6_score_gate.argtypes = [L, I, P, P, P, P, P, P]
+            lib.gn_k7_num_blocks.restype = I
+            lib.gn_k7_num_blocks.argtypes = [L]
+            lib.gn_k7_gate_stats.restype = I
+            lib.gn_k7_gate_stats.argtypes = [
+                L, I, P, P,                  # n_edges, d, u_idx, v_idx
+                P, L, P, L,                  # bu, ldu, bv, ldv
+                P, P, P, P]                  # b3e, partials, out, stream
+            lib.gn_k8_num_blocks.restype = I
+            lib.gn_k8_num_blocks.argtypes = [I]
+            lib.gn_k8_train_layer_bwd.restype = I
+            lib.gn_k8_train_layer_bwd.argtypes = [
+                I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx
+                P, L, P, L,                  # proj_u, ldu, proj_v, ldv
+                P, P, P, P, P, P,            # d_sum_u, d_sum_v, b3e, e_in, d_e_out, bn
+                P, P, P, P, P, P, P]         # x, d_eo, node_u, node_v, partials, stats, stream
+            lib.gn_k9_aggregate.restype = I
+            lib.gn_k9_aggregate.argtypes = [I, I, P, P, P, P, P, P, P, P]
             lib.gn_cuda_error_string.restype = ctypes.c_char_p
             lib.gn_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -125,6 +149,14 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device,
         raise ValueError(f"{name}: last dimension must be contiguous")
     if rows_contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_csr(v_csr, u_csr, n: int, E: int, device) -> None:
+    """The ``(ptr [N+1], perm [E] or None)`` pairs of ``DeviceGraph.roles``."""
+    for side, (ptr, perm) in (("v", v_csr), ("u", u_csr)):
+        _check(f"{side}_ptr", ptr, torch.int32, (n + 1,), device)
+        if perm is not None:
+            _check(f"{side}_perm", perm, torch.int32, (E,), device)
 
 
 def _ptr(t):
@@ -181,10 +213,7 @@ def k3_edge_stage(u_idx, v_idx, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn):
     _check("bn", bn, f32, (4, d), dev)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, i32, (E,), dev)
-    for side, (ptr, perm) in (("v", v_csr), ("u", u_csr)):
-        _check(f"{side}_ptr", ptr, i32, (n + 1,), dev)
-        if perm is not None:
-            _check(f"{side}_perm", perm, i32, (E,), dev)
+    _check_csr(v_csr, u_csr, n, E, dev)
     e_out = torch.empty_like(b3e)
     sum_v = torch.empty((n, 2 * d), dtype=f32, device=dev)
     sum_u = torch.empty((n, 2 * d), dtype=f32, device=dev)
@@ -235,8 +264,176 @@ def k6_score_gate(u_idx, v_idx, puv, be):
     return z
 
 
+# ------------------------------------------------------------------------- K7
+def k7_gate_stats_plain(u_idx, v_idx, bu, bv, b3e):
+    """Plain PyTorch K7: ``[sum x | sum x*x]`` ([2d], float64) over the edge
+    slots of ``x = bu[u] + bv[v] + b3e`` (``bu`` = B1h, ``bv`` = B2h,
+    [N, d]).  Sums in float64 (``x*x`` of a float32 is exact there)."""
+    x = (bu.index_select(0, u_idx) + bv.index_select(0, v_idx)) + b3e
+    x = x.double()
+    return torch.cat([x.sum(0), (x * x).sum(0)])
+
+
+def k7_gate_stats(u_idx, v_idx, bu, bv, b3e):
+    """K7, the training gate's batch statistics (csrc/k7_gate_stats.cu).
+    ``bu``/``bv`` may be column slices (row-strided) of the projection.
+    Returns what ``k7_gate_stats_plain`` returns."""
+    if bu.device.type == "cpu":
+        return k7_gate_stats_plain(u_idx, v_idx, bu, bv, b3e)
+    if bu.device.type != "cuda":
+        raise ValueError(f"K7: unsupported device {bu.device}")
+    dev = bu.device
+    E, d = b3e.shape
+    n = bu.shape[0]
+    if d > 128:
+        raise ValueError(f"K7: d={d} > 128 not supported")
+    _check("bu", bu, torch.float32, (n, d), dev, rows_contiguous=False)
+    _check("bv", bv, torch.float32, (n, d), dev, rows_contiguous=False)
+    _check("b3e", b3e, torch.float32, (E, d), dev)
+    for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
+        _check(name, t, torch.int32, (E,), dev)
+    lib = _library()
+    partials = torch.empty((lib.gn_k7_num_blocks(E), 2 * d),
+                           dtype=torch.float64, device=dev)
+    out = torch.empty(2 * d, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gn_k7_gate_stats(
+            E, d, _ptr(u_idx), _ptr(v_idx), _ptr(bu), bu.stride(0),
+            _ptr(bv), bv.stride(0), _ptr(b3e), _ptr(partials), _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "K7")
+    k7_gate_stats.launches += 1
+    return out
+
+
+# ------------------------------------------------------------------------- K8
+def k8_train_layer_bwd_plain(u_idx, v_idx, d_sum_u, d_sum_v, proj_u, proj_v,
+                             b3e, e_in, d_e_out, bn):
+    """Plain PyTorch K8: ``(x [E, d], d_eo [E, d], node_u [N, 3d],
+    node_v [N, 3d], stats [2d] float64)``; see csrc/k8_train_layer_bwd.cu.
+    ``proj_u`` = [B1h | A2h], ``proj_v`` = [B2h | A3h]; ``d_sum_u`` /
+    ``d_sum_v`` the cotangents of K3's ``sum_u`` / ``sum_v``; ``bn`` [4, d]
+    the rows [mean, rsqrt(var + eps), gamma, beta] the forward used."""
+    d = b3e.shape[1]
+    n = proj_u.shape[0]
+    gu = proj_u.index_select(0, u_idx)
+    gv = proj_v.index_select(0, v_idx)
+    du = d_sum_u.index_select(0, u_idx)
+    dv = d_sum_v.index_select(0, v_idx)
+    x = (gu[:, :d] + gv[:, :d]) + b3e
+    y = ((x - bn[0]) * bn[1]) * bn[2] + bn[3]
+    sigma = torch.sigmoid(torch.relu(y) + e_in)
+    d_sigma = ((dv[:, :d] * gu[:, d:] + dv[:, d:]) + du[:, :d] * gv[:, d:]
+               ) + du[:, d:]
+    d_eo = d_e_out + (d_sigma * sigma) * (1.0 - sigma)
+    d_y = torch.where(y > 0, d_eo, torch.zeros_like(d_eo))
+    dys = d_y * (bn[2] * bn[1])
+    node_u = torch.zeros((n, 3 * d), dtype=b3e.dtype, device=b3e.device)
+    node_u.index_add_(0, u_idx, torch.cat([dys, sigma * dv[:, :d], x], 1))
+    node_v = torch.zeros((n, 3 * d), dtype=b3e.dtype, device=b3e.device)
+    node_v.index_add_(0, v_idx, torch.cat([dys, sigma * du[:, :d], x], 1))
+    d_y64 = d_y.double()
+    stats = torch.cat([d_y64.sum(0), (d_y64 * x.double()).sum(0)])
+    return x, d_eo, node_u, node_v, stats
+
+
+def k8_train_layer_bwd(u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj_u,
+                       proj_v, b3e, e_in, d_e_out, bn):
+    """K8, the training edge stage's adjoint (csrc/k8_train_layer_bwd.cu).
+    ``v_csr`` / ``u_csr`` as for K3.  Returns what
+    ``k8_train_layer_bwd_plain`` returns."""
+    if proj_u.device.type == "cpu":
+        return k8_train_layer_bwd_plain(u_idx, v_idx, d_sum_u, d_sum_v,
+                                        proj_u, proj_v, b3e, e_in, d_e_out,
+                                        bn)
+    if proj_u.device.type != "cuda":
+        raise ValueError(f"K8: unsupported device {proj_u.device}")
+    dev = proj_u.device
+    E, d = b3e.shape
+    n = proj_u.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    if d > 128:
+        raise ValueError(f"K8: d={d} > 128 not supported")
+    if n == 0:
+        raise ValueError("K8: graph without nodes")
+    _check("proj_u", proj_u, f32, (n, 2 * d), dev, rows_contiguous=False)
+    _check("proj_v", proj_v, f32, (n, 2 * d), dev, rows_contiguous=False)
+    for name, t in (("d_sum_u", d_sum_u), ("d_sum_v", d_sum_v)):
+        _check(name, t, f32, (n, 2 * d), dev)
+    for name, t in (("b3e", b3e), ("e_in", e_in), ("d_e_out", d_e_out)):
+        _check(name, t, f32, (E, d), dev)
+    _check("bn", bn, f32, (4, d), dev)
+    for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
+        _check(name, t, i32, (E,), dev)
+    _check_csr(v_csr, u_csr, n, E, dev)
+    lib = _library()
+    x = torch.empty_like(b3e)
+    d_eo = torch.empty_like(b3e)
+    node_u = torch.empty((n, 3 * d), dtype=f32, device=dev)
+    node_v = torch.empty((n, 3 * d), dtype=f32, device=dev)
+    partials = torch.empty((lib.gn_k8_num_blocks(n), 2 * d),
+                           dtype=torch.float64, device=dev)
+    stats = torch.empty(2 * d, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gn_k8_train_layer_bwd(
+            n, d, _ptr(v_csr[0]), _ptr(v_csr[1]), _ptr(u_csr[0]),
+            _ptr(u_csr[1]), _ptr(u_idx), _ptr(v_idx),
+            _ptr(proj_u), proj_u.stride(0), _ptr(proj_v), proj_v.stride(0),
+            _ptr(d_sum_u), _ptr(d_sum_v), _ptr(b3e), _ptr(e_in),
+            _ptr(d_e_out), _ptr(bn), _ptr(x), _ptr(d_eo), _ptr(node_u),
+            _ptr(node_v), _ptr(partials), _ptr(stats),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "K8")
+    k8_train_layer_bwd.launches += 1
+    return x, d_eo, node_u, node_v, stats
+
+
+# ------------------------------------------------------------------------- K9
+def k9_aggregate_plain(u_idx, v_idx, pay, n_nodes: int):
+    """Plain PyTorch K9: ``(sum_u [N, H], sum_v [N, H])``, the per-edge
+    payload ``pay`` [E, H] summed into the u and into the v endpoint."""
+    H = pay.shape[1]
+    sum_u = torch.zeros((n_nodes, H), dtype=pay.dtype, device=pay.device)
+    sum_u.index_add_(0, u_idx, pay)
+    sum_v = torch.zeros((n_nodes, H), dtype=pay.dtype, device=pay.device)
+    sum_v.index_add_(0, v_idx, pay)
+    return sum_u, sum_v
+
+
+def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
+    """K9, the score gate's adjoint (csrc/k9_aggregate.cu).  ``v_csr`` /
+    ``u_csr`` as for K3.  Returns what ``k9_aggregate_plain`` returns."""
+    n = v_csr[0].shape[0] - 1
+    if pay.device.type == "cpu":
+        return k9_aggregate_plain(u_idx, v_idx, pay, n)
+    if pay.device.type != "cuda":
+        raise ValueError(f"K9: unsupported device {pay.device}")
+    dev = pay.device
+    E, H = pay.shape
+    if H > 128:
+        raise ValueError(f"K9: H={H} > 128 not supported")
+    _check("pay", pay, torch.float32, (E, H), dev)
+    for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
+        _check(name, t, torch.int32, (E,), dev)
+    _check_csr(v_csr, u_csr, n, E, dev)
+    sum_u = torch.empty((n, H), dtype=torch.float32, device=dev)
+    sum_v = torch.empty((n, H), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_k9_aggregate(
+            n, H, _ptr(v_csr[0]), _ptr(v_csr[1]), _ptr(u_csr[0]),
+            _ptr(u_csr[1]), _ptr(pay), _ptr(sum_u), _ptr(sum_v),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "K9")
+    k9_aggregate.launches += 1
+    return sum_u, sum_v
+
+
 # ------------------------------------------------------------ launch counting
-KERNELS = {"k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate}
+KERNELS = {"k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
+           "k7_gate_stats": k7_gate_stats,
+           "k8_train_layer_bwd": k8_train_layer_bwd,
+           "k9_aggregate": k9_aggregate}
 for _fn in KERNELS.values():
     _fn.launches = 0
 

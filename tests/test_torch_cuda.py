@@ -1,5 +1,7 @@
-"""The CUDA kernels K3 and K6 against their plain PyTorch versions, on the
-card.  Every test here is ``cuda``-marked and skips where no GPU is present.
+"""The CUDA kernels K3, K6, K7, K8 and K9 against their plain PyTorch
+versions, on the card, and two card train steps from one state bitwise
+equal.  Every test here is ``cuda``-marked and skips where no GPU is
+present.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 without them; skip the JAX-importing conftest there:
@@ -9,7 +11,9 @@ without them; skip the JAX-importing conftest there:
 Tolerances: e_out and z repeat the plain version's per-op rounding (only
 sigmoid's exp may differ by an ulp): ``atol=1e-5`` and exact; node sums add
 ~30 terms in another order (the plain version scatters with atomics):
-``rtol=1e-5, atol=1e-4``.
+``rtol=1e-5, atol=1e-4``.  K7 / K8's float64 global sums: ``rtol=1e-9``
+relative to the sum of magnitudes (the order differs); K8's per-edge x is
+exact, d_eo ``atol=1e-5`` (sigmoid); K9's sums as K3's.
 """
 import pytest
 import torch
@@ -86,3 +90,118 @@ def test_wrapper_rejects_bad_inputs(graph, cuda):
     with pytest.raises(ValueError):
         K.k6_score_gate(u, v, puv, torch.zeros(graph.n_edges + 1, 64,
                                                device=cuda))
+
+
+def _train_inputs(graph, cuda, d, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    N, E = graph.n_nodes, graph.n_edges
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    proj = randn(N, 4 * d)                    # [B1|A2|B2|A3], as the model
+    bn = torch.stack([randn(d) * 0.3,
+                      torch.rand(d, device=cuda, generator=gen) + 0.5,
+                      torch.rand(d, device=cuda, generator=gen) + 0.5,
+                      randn(d) * 0.1])
+    return dict(proj_u=proj[:, :2 * d], proj_v=proj[:, 2 * d:],
+                b3e=randn(E, d), e_in=randn(E, d), d_e_out=randn(E, d),
+                d_sum_u=randn(N, 2 * d), d_sum_v=randn(N, 2 * d), bn=bn)
+
+
+def _close64(got, ref, terms):
+    """float64 sums in another order: within 1e-9 of the summed |terms|."""
+    assert bool(((got - ref).abs() <= 1e-9 * terms + 1e-12).all())
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k7_kernel_vs_plain(graph, cuda, flip, d):
+    a = _train_inputs(graph, cuda, d, seed=7)
+    u, v, _, _ = graph.roles(flip)
+    bu, bv = a["proj_u"][:, :d], a["proj_v"][:, :d]    # strided gate halves
+    n0 = K.k7_gate_stats.launches
+    got = K.k7_gate_stats(u, v, bu, bv, a["b3e"])
+    assert K.k7_gate_stats.launches == n0 + 1
+    ref = K.k7_gate_stats_plain(u, v, bu, bv, a["b3e"])
+    x = (bu[u.long()] + bv[v.long()] + a["b3e"]).double()
+    _close64(got, ref, torch.cat([x.abs().sum(0), (x * x).sum(0)]))
+    assert torch.equal(got, K.k7_gate_stats(u, v, bu, bv, a["b3e"]))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k8_kernel_vs_plain(graph, cuda, flip, d):
+    a = _train_inputs(graph, cuda, d, seed=8)
+    u, v, v_csr, u_csr = graph.roles(flip)
+    args = (a["d_sum_u"], a["d_sum_v"], a["proj_u"], a["proj_v"], a["b3e"],
+            a["e_in"], a["d_e_out"], a["bn"])
+    n0 = K.k8_train_layer_bwd.launches
+    got = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
+    assert K.k8_train_layer_bwd.launches == n0 + 1
+    ref = K.k8_train_layer_bwd_plain(u, v, *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)      # x
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)   # d_eo
+    for x, y in zip(got[2:4], ref[2:4]):                            # node sums
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-4)
+    deo = ref[1].double().abs()                 # bounds |d_y| term by term
+    _close64(got[4], ref[4], torch.cat([deo.sum(0),
+                                        (deo * ref[0].double().abs()).sum(0)]))
+    again = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))      # no atomics
+
+
+@pytest.mark.parametrize("h", [16, 64, 128])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k9_kernel_vs_plain(graph, cuda, flip, h):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    pay = torch.randn(graph.n_edges, h, device=cuda, generator=gen)
+    u, v, v_csr, u_csr = graph.roles(flip)
+    n0 = K.k9_aggregate.launches
+    got = K.k9_aggregate(u, v, v_csr, u_csr, pay)
+    assert K.k9_aggregate.launches == n0 + 1
+    ref = K.k9_aggregate_plain(u, v, pay, graph.n_nodes)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-4)
+    again = K.k9_aggregate(u, v, v_csr, u_csr, pay)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+def test_two_card_train_steps_bitwise_equal(cuda):
+    """Two train steps from one state (weights, data, dropout seed) give the
+    same loss, logits, gradients and parameters after Adam, bit for bit."""
+    import numpy as np
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.models import SymGatedGCN
+    from gnnome_tpu_torch.train.step import (host_units, make_example,
+                                             make_optimizer, train_step)
+
+    g, _, _, _ = synthetic_assembly_graph(n_reads=300, genome_len=25000,
+                                          read_len=400, seed=13)
+    cfg = Config()
+    cfg.train.masking = False
+    cfg.train.num_nodes_per_cluster = 10_000
+    (unit,) = host_units(g, cfg, np.random.default_rng(0))
+    ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
+                      unit.src, unit.dst, unit.n_nodes, cuda)
+    K.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        model = SymGatedGCN.from_config(cfg.model).init_weights(3).to(cuda)
+        opt = make_optimizer(model, 1e-3)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        loss, logits = train_step(model, opt, ex, 2.0, cfg, gen)
+        grads = [p.grad.clone() for p in model.parameters()]
+        outs.append((loss, logits, grads,
+                     [p.detach().clone() for p in model.parameters()]))
+    assert K.launch_counts() == {"k3_edge_stage": 32, "k6_score_gate": 4,
+                                 "k7_gate_stats": 32,
+                                 "k8_train_layer_bwd": 32, "k9_aggregate": 4}
+    (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
+    assert torch.isfinite(lo0).all()
+    assert torch.equal(l0, l1) and torch.equal(lo0, lo1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -25,6 +25,7 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "torch_eval_profile.py")
+    yield os.path.join(ROOT, "scripts", "torch_train_profile.py")
     yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
 
 
@@ -58,6 +59,7 @@ from gnnome_tpu_torch.graphs import synthetic_assembly_graph
 from gnnome_tpu_torch.infer import load_model, score_model
 from gnnome_tpu_torch.models.checkpoint import load_model_weights
 from gnnome_tpu_torch import cli, native, data, decode  # noqa: F401
+from gnnome_tpu_torch.train import loop, step  # noqa: F401
 
 g, _, _, _ = synthetic_assembly_graph(n_reads=40, genome_len=3000,
                                       read_len=300, seed=0)

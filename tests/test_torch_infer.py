@@ -124,3 +124,45 @@ def test_jax_only_compute_options_are_rejected():
     cfg = Config().apply_overrides(["compute.device=cpu",
                                     "decode.len_threshold=5000"])
     assert (cfg.compute.device, cfg.decode.len_threshold) == ("cpu", 5000)
+
+
+def test_decode_keeps_a_checkpoint_it_did_not_use(tmp_path):
+    """With ``load_checkpoint=False`` a decode neither reads nor writes (short
+    decode: fewer than 10 contigs) an existing checkpoint, so it must leave
+    it in place.  The JAX package's decode (the behaviour the port's copy
+    had) deletes it; the port keeps it, and still deletes one it read."""
+    from gnnome_tpu.config import DecodeConfig as JaxDecodeConfig
+    from gnnome_tpu.decode.greedy import decode_greedy as jax_decode
+
+    from gnnome_tpu_torch.config import DecodeConfig
+    from gnnome_tpu_torch.decode import decode_greedy
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+
+    g, _, _, _ = synthetic_assembly_graph(n_reads=120, genome_len=10000,
+                                          read_len=400, seed=12)
+    scores = np.where(g.y > 0.5, 5.0, -5.0).astype(np.float32)
+    ckpt = tmp_path / "checkpoint.pkl"
+    foreign = b"another run's decode checkpoint"
+
+    def decode(fn, cfg):
+        ckpt.write_bytes(foreign)
+        cfg.load_checkpoint = False
+        cfg.len_threshold = 1000
+        out = fn(g, scores, cfg, checkpoint_dir=str(tmp_path),
+                 rng=np.random.default_rng(0))
+        assert 0 < len(out.walks) < 10
+        return ckpt.exists()
+
+    assert not decode(jax_decode, JaxDecodeConfig())       # the old fault
+    assert decode(decode_greedy, DecodeConfig())            # fixed
+    assert ckpt.read_bytes() == foreign
+    # a checkpoint this run read is this run's: removed once complete
+    import pickle
+    ckpt.write_bytes(pickle.dumps({"walks": [], "visited": np.zeros(0, int),
+                                   "all_walks_len": [],
+                                   "all_contigs_len": []}))
+    cfg = DecodeConfig()
+    cfg.len_threshold = 1000
+    decode_greedy(g, scores, cfg, checkpoint_dir=str(tmp_path),
+                  rng=np.random.default_rng(0))
+    assert not ckpt.exists()

@@ -1,4 +1,5 @@
-"""K3 / K6 of gnnome_tpu_torch against the JAX functions they replace.
+"""K3 / K6 of gnnome_tpu_torch, and the training functions that carry K7,
+K8 and K9, against the JAX functions they replace.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against ``gnnome_tpu.ops.message.fused_eval_edge_stage`` and
@@ -8,13 +9,23 @@ flips and narrow width.  The JAX side runs on padded, packed, re-slotted
 arrays; the comparison is in host edge order (through each side's
 ``eid_of_slot``/``slot_of_eid``) and on the first N node rows.
 
+The training edge stage (``train_edge_stage``: K7 + K3 forward, K8
+backward) and the score gate's backward (K9) are held against
+``fused_train_stage`` and the VJP of ``fused_score_gate`` in interpret mode,
+forward outputs and the VJP under seeded random cotangents, both flips, and
+through ``torch.autograd.gradcheck`` in float64.
+
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py.
 
 Tolerances: edge outputs ``atol=1e-5`` (the same elementwise arithmetic;
 the JAX interpret path runs its row selects as f32 one-hot matmuls at
 HIGHEST precision), node sums ``rtol=1e-5, atol=1e-5`` (sums of ~30 terms in
-another order).
+another order).  The training functions take those of the JAX package's own
+fused-vs-XLA training tests (tests/test_pallas_k4.py:55,60,81): forward
+outputs ``atol=5e-5, rtol=1e-4`` (the JAX kernel folds the batch statistics
+into one affine, the port does not), batch statistics ``1e-5``, gradients
+``atol=2e-4, rtol=5e-3``.
 """
 import numpy as np
 import pytest
@@ -29,12 +40,16 @@ from gnnome_tpu.ops import message as jmsg
 from gnnome_tpu.ops.graph_tensors import with_windowed_plans
 from gnnome_tpu.ops.pallas_kernels import set_interpret
 
-from gnnome_tpu_torch.ops import DeviceGraph, eval_edge_stage, score_gate
+from gnnome_tpu_torch.ops import (DeviceGraph, eval_edge_stage, score_gate,
+                                  train_edge_stage)
 from gnnome_tpu_torch.ops import kernels as K
 
 TILE, WIN, D = 128, 128, 16
 EDGE_TOL = dict(rtol=0, atol=1e-5)
 SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+FWD_TOL = dict(rtol=1e-4, atol=5e-5)
+STAT_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=5e-3, atol=2e-4)
 
 
 @pytest.fixture(autouse=True)
@@ -167,8 +182,165 @@ def test_device_graph_layout(graphs):
 
 
 def test_wrappers_count_only_kernel_launches(graphs):
-    """On the CPU the wrappers take the plain versions: no launch counted."""
+    """On the CPU the wrappers take the plain versions: no launch counted,
+    through the eval stage and a training forward and backward alike."""
     g, _, _, dg = graphs
     K.reset_launch_counts()
     _port(g, dg, _inputs(g, seed=4)[0], flip=False)
-    assert K.launch_counts() == {"k3_edge_stage": 0, "k6_score_gate": 0}
+    t = {k: torch.from_numpy(v).requires_grad_()
+         for k, v in _train_inputs(g, seed=4).items()}
+    e_out, sum_v, sum_u, _, _ = train_edge_stage(
+        dg, False, t["h"], t["w_uv"], t["b_uv"], t["w3"], t["b3"],
+        dg.edges_to_slots(t["e"]), t["gamma"], t["beta"])
+    z = score_gate(dg, False, sum_v, e_out)
+    (z.sum() + sum_u.sum()).backward()
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+    assert set(K.KERNELS) == {"k3_edge_stage", "k6_score_gate",
+                              "k7_gate_stats", "k8_train_layer_bwd",
+                              "k9_aggregate"}
+
+
+# ------------------------------------------------------- training functions
+def _train_inputs(g, seed, d=D):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return dict(h=f(g.num_nodes, d), w_uv=f(d, 4 * d) * 0.5,
+                b_uv=f(4 * d) * 0.1, w3=f(d, d) * 0.5, b3=f(d) * 0.1,
+                e=f(g.num_edges, d),
+                gamma=rng.uniform(0.5, 1.5, d).astype(np.float32),
+                beta=f(d) * 0.1)
+
+
+def _jax_train_stage(gt, a, flip):
+    """JAX ``fused_train_stage`` (Pallas, interpret mode) as a function of
+    (h, w_uv, b_uv, w3, b3, e [Ep, d] slot order, gamma, beta)."""
+    def fn(h, w_uv, b_uv, w3, b3, e_slots, gamma, beta):
+        zero = jnp.zeros_like(w3)
+        wbd = jnp.concatenate([jnp.concatenate([w3, zero], axis=1),
+                               jnp.concatenate([zero, w3], axis=1)], axis=0)
+        e_out_p, sum_v, sum_u, mean, var = jmsg.fused_train_stage(
+            gt, h, w_uv, b_uv, wbd, jnp.concatenate([b3, b3]),
+            jmsg.pack_edges(e_slots), gamma, beta, flip=flip)
+        return jmsg.unpack_edges(e_out_p), sum_v, sum_u, mean, var
+
+    args = (gt.pad_nodes(a["h"]), a["w_uv"], a["b_uv"], a["w3"], a["b3"],
+            _jax_slots(gt, a["e"]), a["gamma"], a["beta"])
+    return fn, tuple(jnp.asarray(x) for x in args)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_train_edge_stage_vs_pallas_fused_train_stage(graphs, flip):
+    """Forward outputs, batch statistics and the VJP against h, w_uv, b_uv,
+    B3, e, gamma and beta under seeded random cotangents (real edges and
+    nodes only; JAX's padded rows get zero cotangents)."""
+    g, _, gt, dg = graphs
+    assert (gt.wplan_flip if flip else gt.wplan).n_ovf > 0   # overflow tail
+    n, E = g.num_nodes, g.num_edges
+    a = _train_inputs(g, seed=10)
+    rng = np.random.default_rng(11)
+    d_eo = rng.standard_normal((E, D)).astype(np.float32)
+    d_sv = rng.standard_normal((n, 2 * D)).astype(np.float32)
+    d_su = rng.standard_normal((n, 2 * D)).astype(np.float32)
+
+    fn, args = _jax_train_stage(gt, a, flip)
+    (e_out, sum_v, sum_u, mean, var), vjp = jax.vjp(fn, *args)
+    ref_grads = vjp((_jax_slots(gt, d_eo), gt.pad_nodes(d_sv),
+                     gt.pad_nodes(d_su), jnp.zeros_like(mean),
+                     jnp.zeros_like(var)))
+
+    t = {k: torch.from_numpy(v).requires_grad_() for k, v in a.items()}
+    out = train_edge_stage(dg, flip, t["h"], t["w_uv"], t["b_uv"], t["w3"],
+                           t["b3"], dg.edges_to_slots(t["e"]), t["gamma"],
+                           t["beta"])
+    np.testing.assert_allclose(dg.slots_to_edges(out[0]).detach().numpy(),
+                               _jax_host(gt, e_out, E), **FWD_TOL)
+    np.testing.assert_allclose(out[1].detach().numpy(),
+                               np.asarray(sum_v)[:n], **FWD_TOL)
+    np.testing.assert_allclose(out[2].detach().numpy(),
+                               np.asarray(sum_u)[:n], **FWD_TOL)
+    np.testing.assert_allclose(out[3].numpy(), np.asarray(mean), **STAT_TOL)
+    np.testing.assert_allclose(out[4].numpy(), np.asarray(var), **STAT_TOL)
+    assert not out[3].requires_grad and not out[4].requires_grad
+
+    torch.autograd.backward(
+        out[:3], (dg.edges_to_slots(torch.from_numpy(d_eo)),
+                  torch.from_numpy(d_sv), torch.from_numpy(d_su)))
+    names = ("h", "w_uv", "b_uv", "w3", "b3", "e", "gamma", "beta")
+    for name, ref in zip(names, ref_grads):
+        ref = np.asarray(ref)
+        if name == "h":
+            ref = ref[:n]
+        elif name == "e":
+            ref = _jax_host(gt, ref, E)
+        np.testing.assert_allclose(t[name].grad.numpy(), ref, **GRAD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_score_gate_backward_vs_pallas_vjp(graphs, flip):
+    """K9's plain version (through ``score_gate``'s backward) against the
+    VJP of JAX ``fused_score_gate`` (K9 in interpret mode)."""
+    g, _, gt, dg = graphs
+    n, E = g.num_nodes, g.num_edges
+    rng = np.random.default_rng(12)
+    puv = rng.standard_normal((n, 2 * D)).astype(np.float32)
+    be = rng.standard_normal((E, D)).astype(np.float32)
+    dz = rng.standard_normal((E, D)).astype(np.float32)
+
+    def fn(puv_, be_slots):
+        return jmsg.unpack_edges(jmsg.fused_score_gate(
+            gt, flip, puv_, jmsg.pack_edges(be_slots)))
+
+    z, vjp = jax.vjp(fn, gt.pad_nodes(puv), _jax_slots(gt, be))
+    d_puv, d_be = vjp(_jax_slots(gt, dz))
+
+    tp = torch.from_numpy(puv).requires_grad_()
+    tb = torch.from_numpy(be).requires_grad_()
+    zt = score_gate(dg, flip, tp, dg.edges_to_slots(tb))
+    np.testing.assert_allclose(dg.slots_to_edges(zt).detach().numpy(),
+                               _jax_host(gt, z, E), **EDGE_TOL)
+    zt.backward(dg.edges_to_slots(torch.from_numpy(dz)))
+    np.testing.assert_allclose(tp.grad.numpy(), np.asarray(d_puv)[:n],
+                               **SUM_TOL)
+    np.testing.assert_allclose(tb.grad.numpy(), _jax_host(gt, d_be, E),
+                               **EDGE_TOL)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    g, _, _, _ = synthetic_assembly_graph(n_reads=6, genome_len=1500,
+                                          read_len=400, seed=3)
+    assert 0 < g.num_edges < 100
+    return g, DeviceGraph.from_graph(g)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_train_edge_stage_gradcheck(tiny, flip):
+    """Float64 finite differences through the batch statistics, K3, K8 and
+    the node-space chain, all three differentiable outputs."""
+    g, dg = tiny
+    rng = np.random.default_rng(13)
+    d = 3
+
+    def f(*s):
+        return torch.tensor(rng.standard_normal(s), dtype=torch.float64,
+                            requires_grad=True)
+
+    args = (f(g.num_nodes, d), f(d, 4 * d), f(4 * d), f(d, d), f(d),
+            f(g.num_edges, d), f(d), f(d))
+    assert torch.autograd.gradcheck(
+        lambda *a: train_edge_stage(dg, flip, *a)[:3], args, eps=1e-6,
+        atol=1e-5)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_score_gate_gradcheck(tiny, flip):
+    g, dg = tiny
+    rng = np.random.default_rng(14)
+    puv = torch.tensor(rng.standard_normal((g.num_nodes, 6)),
+                       dtype=torch.float64, requires_grad=True)
+    be = torch.tensor(rng.standard_normal((g.num_edges, 3)),
+                      dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda p, b: score_gate(dg, flip, p, b), (puv, be), eps=1e-6,
+        atol=1e-5)

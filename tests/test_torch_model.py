@@ -154,7 +154,26 @@ def test_two_cpu_forwards_bitwise_equal(small):
     assert np.array_equal(a, b)
 
 
-def test_training_forward_refused():
-    model = SymGatedGCN(num_layers=1).train()
-    with pytest.raises(NotImplementedError):
-        model(None, None, None)
+def test_infer_never_runs_batch_statistics(small, monkeypatch):
+    """``infer`` scores in eval mode: the model ``load_model`` returns is in
+    eval mode, scoring reaches neither the training edge stage nor the
+    training BatchNorm, and every BatchNorm buffer stays as loaded."""
+    from gnnome_tpu_torch import infer
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.models import sym_gated_gcn
+
+    def refuse(*_a, **_k):
+        raise AssertionError("batch statistics in infer")
+
+    monkeypatch.setattr(sym_gated_gcn, "train_edge_stage", refuse)
+    monkeypatch.setattr(sym_gated_gcn, "batch_norm_train", refuse)
+    g, params, state, _ = small
+    cfg = Config()
+    cfg.model = ModelConfig(**SMALL)
+    model = infer.load_model(params, state, cfg, "cpu")
+    assert not model.training
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    lo = infer.score_model(model, g, cfg, "cpu")
+    assert lo.shape == (g.num_edges,) and np.isfinite(lo).all()
+    after = model.state_dict()
+    assert all(torch.equal(before[k], after[k]) for k in before)
