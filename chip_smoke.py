@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels (``build/libgnnome_kernels.so``) and the host
 library (``build/libgnnome_host.so``) from the sources in the checkout, then
-runs six phases, each printing one JSON line:
+runs its phases, each printing one JSON line:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, compute capability, build seconds, the compiler's per-kernel
@@ -15,37 +15,48 @@ runs six phases, each printing one JSON line:
    ``weights/weights.npz`` (d=H=64, 8 layers) on the card; held against the
    port's own CPU run; two card runs bitwise equal; K3 launched 8 times and
    K6 once per forward; average precision against the graph's labels.
-3. ``kernels``: K3, K6, K7, K8 and K9 (each at both flips) at the golden
-   graph's shapes on its real CSR, inputs from ``--seed``; each kernel
-   against its plain PyTorch version on the card, and timed (CUDA events
-   around 10 back-to-back calls, median of 10 such repeats, after warm-up)
-   beside its least possible time and, where one PyTorch call computes the
-   same function, that call's time.
-4. ``infer``: a synthetic dataset written in the dataset layout, then
+3. ``model_unfused``: the same graph scored by the layer-norm and the
+   norm-free model at full width and depth (d=H=64, 8 layers, seeded init
+   weights): card vs CPU, two card runs bitwise equal, exactly 8 K1 and 8
+   K2 launches per forward and no other kernel, forward time and memory.
+4. ``kernels``: K1, K2 (at Dp = 128 and 64), K3, K6, K7, K8 and K9 (each at
+   both flips) at the golden graph's shapes on its real CSR, inputs from
+   ``--seed``; each kernel against its plain PyTorch version on the card,
+   and timed (CUDA events around 10 back-to-back calls, median of 10 such
+   repeats, after warm-up) beside its least possible time and, where one
+   PyTorch call computes the same function, that call's time.
+5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
    exact substring of the genome.
-5. ``train_step``: the full-width model (d=64, 8 layers) started from the
-   shipped weights.  On the golden subgraph, one symmetry-loss step on the
-   card against the port's CPU step (loss, every gradient, BN state); on the
-   whole golden graph as one unit, two steps from one state bitwise equal
-   (loss, logits, gradients, parameters after Adam), exactly 16 K7, 16 K3,
-   16 K8, 2 K6 and 2 K9 launches per step, no host synchronisation inside
-   a step (``torch.cuda.set_sync_debug_mode("error")``), the step time and
-   peak memory.
-6. ``train``: ``gnnome_tpu_torch.cli train`` on the card with the default
+6. ``train_step`` and ``train_step_layer``: the full-width model (d=64, 8
+   layers), started from the shipped weights (batch norm) or seeded init
+   weights (layer norm).  On the golden subgraph, one symmetry-loss step on
+   the card against the port's CPU step (loss, every gradient, BN state);
+   on the whole golden graph as one unit, two steps from one state bitwise
+   equal (loss, logits, gradients, parameters after Adam), exactly 16 K7,
+   16 K3, 16 K8, 2 K6 and 2 K9 launches per step (layer norm: 16 K1 and 34
+   K2), no host synchronisation inside a step
+   (``torch.cuda.set_sync_debug_mode("error")``), the step time and peak
+   memory.
+7. ``train``: ``gnnome_tpu_torch.cli train`` on the card with the default
    settings (the training path, counters set to 0 just before it): one
    epoch on the golden graph written as a training dataset (train = valid);
    resumed twice from its checkpoint, the two checkpoints bitwise equal;
    then an overfit run on a small synthetic dataset (12 epochs, lr 1e-3)
    whose last loss must be under 0.9x its first and whose saved model must
    score an average precision above 0.75.
+8. ``cli_layer``: the layer-norm model's paths, each with the counters set
+   to 0 just before it: ``cli train --set model.normalization=layer`` on
+   the overfit dataset (12 epochs, lr 1e-3), which must learn as phase 7's
+   run must, then ``cli infer`` with the model it saved on phase 5's
+   dataset, whose longest contig must be an exact substring of the genome.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
-training path of phase 6; the eval path's in ``launches_by_path``), the
-``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.
-Any failed phase raises and the script exits non-zero; without a CUDA
-device it exits non-zero at once.
+training path of phase 7, for K1 and K2 from that of phase 8; every path's
+in ``launches_by_path``), the ``nvidia-smi`` line, and the last line
+``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
+exits non-zero; without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -111,6 +122,20 @@ OVERFIT_LOSS_DROP, OVERFIT_MIN_AP = 0.9, 0.75
 TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 16, "k6_score_gate": 2,
                        "k7_gate_stats": 16, "k8_train_layer_bwd": 16,
                        "k9_aggregate": 2}
+# the layer-norm and norm-free model runs K1 and K2 only: per forward one K1
+# and one K2 (the gated means) per layer; per symmetry-loss step two
+# forwards and their backwards (K2 for each K1, two row gathers for each
+# gated-mean K2, K2 for each predictor's endpoint gathers)
+UNFUSED_FORWARD_LAUNCHES = {"k1_gather_gate": 8, "k2_aggregate": 8}
+UNFUSED_STEP_LAUNCHES = {"k1_gather_gate": 16, "k2_aggregate": 34}
+UNFUSED_INIT_SEED = 7              # init_weights seed of those models
+
+
+def expected_launches(**counts) -> dict:
+    """Every kernel's launch count: ``counts``, and 0 for the others."""
+    from gnnome_tpu_torch.ops import kernels as K
+
+    return {**{k: 0 for k in K.KERNELS}, **counts}
 
 
 def check(cond: bool, what: str) -> None:
@@ -423,32 +448,97 @@ def phase_kernels(seed: int, dev, per_forward: dict):
               tolerance={"sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL},
               library_call="torch.Tensor.index_add_ on [u; v+N], [pay; pay]")
     out["k9_aggregate"] = k9
+
+    # ---- the layer-norm model's kernels: K1 on the [N, 5d] projection's
+    # column slices, as the model calls it
+    k1 = {}
+    for flip in (False, True):
+        u, v, _, _ = g.roles(flip)
+        got = K.k1_gather_gate(u, v, proj_u, proj_v, b3e)
+        ref = K.k1_gather_gate_plain(u, v, proj_u, proj_v, b3e)
+        torch.cuda.synchronize()
+        diff = float((got - ref).abs().max())
+        check(diff <= EDGE_ATOL, f"K1 flip={flip} diff {diff}")
+        check(torch.equal(got, K.k1_gather_gate(u, v, proj_u, proj_v, b3e)),
+              f"K1 flip={flip} bitwise reproducible")
+        k1[f"flip={flip}"] = {
+            "max_abs_diff": diff,
+            "kernel_ms": cuda_ms(lambda: K.k1_gather_gate(u, v, proj_u,
+                                                          proj_v, b3e)),
+            "plain_ms": cuda_ms(lambda: K.k1_gather_gate_plain(
+                u, v, proj_u, proj_v, b3e))}
+    # read the used [N, 2d] halves of the projection, b3e, u/v indices;
+    # write [E, 3d]; two adds per (edge, feature)
+    k1_bytes = f4 * (2 * N * 2 * d + E * d + E * 3 * d) + i4 * 2 * E
+    k1_bound, k1_by = bound(k1_bytes, 2.0 * E * d)
+    k1.update(bound_ms=k1_bound, bound_by=k1_by, bytes=k1_bytes,
+              tolerance={"atol": EDGE_ATOL})
+    out["k1_gather_gate"] = k1
+
+    # K2 at Dp = 2d (the gated mean, K1's adjoint) and Dp = d (the
+    # predictor gathers' adjoint)
+    k2 = {}
+    for width in (2 * d, d):
+        pay_u, pay_v = randn(E, width), randn(E, width)
+        pay2 = torch.cat([pay_u, pay_v])
+        acc = torch.zeros(2 * N, width, device=dev)
+        r = {}
+        for flip in (False, True):
+            u, v, v_csr, u_csr = g.roles(flip)
+            got = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+            ref = K.k2_aggregate_plain(u, v, pay_u, pay_v, N)
+            torch.cuda.synchronize()
+            for a_, b_ in zip(got, ref):
+                ok = bool(((a_ - b_).abs() <= SUM_ATOL
+                           + SUM_RTOL * b_.abs()).all())
+                check(ok, f"K2 Dp={width} flip={flip} sums within tolerance")
+            again = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+            check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                  f"K2 Dp={width} flip={flip} bitwise reproducible")
+            # the one PyTorch call for the same sums, as for K9
+            uv = torch.cat([u.long(), v.long() + N])
+            r[f"flip={flip}"] = {
+                "max_abs_diff": max(float((a_ - b_).abs().max())
+                                    for a_, b_ in zip(got, ref)),
+                "kernel_ms": cuda_ms(lambda: K.k2_aggregate(
+                    u, v, v_csr, u_csr, pay_u, pay_v)),
+                "plain_ms": cuda_ms(lambda: K.k2_aggregate_plain(
+                    u, v, pay_u, pay_v, N)),
+                "library_ms": cuda_ms(lambda: acc.zero_().index_add_(
+                    0, uv, pay2))}
+        # read both payloads, both row-pointer arrays and one slot
+        # permutation; write the two [N, Dp] sums; one add per element
+        k2_bytes = f4 * (2 * E * width + 2 * N * width) + i4 * (E + 2 * (N + 1))
+        k2_bound, k2_by = bound(k2_bytes, 2.0 * E * width)
+        r.update(bound_ms=k2_bound, bound_by=k2_by, bytes=k2_bytes)
+        k2[f"Dp={width}"] = r
+    k2.update(tolerance={"sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL},
+              library_call="torch.Tensor.index_add_ on [u; v+N], "
+                           "[pay_u; pay_v]")
+    out["k2_aggregate"] = k2
     emit("kernels", graph={"nodes": N, "edges": E}, d=d, H=H, seed=seed,
          **out)
     return out
 
 
-def phase_model(dev):
-    """Golden graph, shipped weights: card vs the port's CPU run."""
+def card_vs_cpu_forward(graph, new_model, dev, per_forward: dict,
+                        what: str):
+    """Scores ``graph`` with ``new_model(device)`` on the CPU and on the
+    card: two card forwards bitwise equal, each launching the kernels of
+    ``per_forward`` that often and no other; finite logits within
+    LOGIT_ATOL + LOGIT_RTOL·|x| of the CPU run.  Returns (card logits, CPU
+    logits, a summary with the forward time and peak memory)."""
     import numpy as np
     import torch
 
-    from gnnome_tpu_torch.config import Config
-    from gnnome_tpu_torch.graphs.container import AssemblyGraph
-    from gnnome_tpu_torch.infer import load_model
-    from gnnome_tpu_torch.models import (edge_features, load_model_weights,
-                                         node_features)
+    from gnnome_tpu_torch.models import edge_features, node_features
     from gnnome_tpu_torch.ops import DeviceGraph
     from gnnome_tpu_torch.ops import kernels as K
 
-    graph = AssemblyGraph.load(GOLDEN)
-    cfg = Config()
-    params, state = load_model_weights(WEIGHTS)
     x_np, e_np = node_features(graph), edge_features(graph)
 
     def setup(device):
-        return (load_model(params, state, cfg, device),
-                DeviceGraph.from_graph(graph, device),
+        return (new_model(device), DeviceGraph.from_graph(graph, device),
                 torch.as_tensor(x_np, device=device),
                 torch.as_tensor(e_np, device=device))
 
@@ -464,17 +554,43 @@ def phase_model(dev):
         runs = [model(g, x, e).reshape(-1) for _ in range(2)]
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        check(counts == {**{k: 0 for k in K.KERNELS},
-                         "k3_edge_stage": 16, "k6_score_gate": 2},
-              f"per-forward launches (2 forwards): {counts}")
-        check(torch.equal(runs[0], runs[1]), "two card runs bitwise equal")
+        check(counts == expected_launches(**{k: 2 * n for k, n
+                                             in per_forward.items()}),
+              f"{what}: per-forward launches (2 forwards): {counts}")
+        check(torch.equal(runs[0], runs[1]),
+              f"{what}: two card runs bitwise equal")
+        torch.cuda.reset_peak_memory_stats(dev)
         fwd_ms = cuda_ms(lambda: model(g, x, e), reps=5, n=5)
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     lo = runs[0].cpu().numpy()
     check(bool(np.isfinite(lo).all()) and lo.shape == (graph.num_edges,),
-          "finite logits of shape [E]")
+          f"{what}: finite logits of shape [E]")
     dlo = np.abs(lo - lo_cpu)
     check(bool((dlo <= LOGIT_ATOL + LOGIT_RTOL * np.abs(lo_cpu)).all()),
-          f"logits vs CPU run (max {dlo.max()})")
+          f"{what}: logits vs CPU run (max {dlo.max()})")
+    return lo, lo_cpu, {
+        "launches_per_forward": {k: n // 2 for k, n in counts.items()},
+        "bitwise_reproducible": True,
+        "max_abs_logit_diff_vs_cpu": float(dlo.max()),
+        "logit_range": [float(lo.min()), float(lo.max())],
+        "forward_ms": fwd_ms, "max_memory_allocated_mb": peak_mb,
+        "cpu_forward_s": cpu_s}
+
+
+def phase_model(dev):
+    """Golden graph, shipped weights: card vs the port's CPU run."""
+    import numpy as np
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.infer import load_model
+    from gnnome_tpu_torch.models import load_model_weights
+
+    graph = AssemblyGraph.load(GOLDEN)
+    params, state = load_model_weights(WEIGHTS)
+    lo, lo_cpu, fwd = card_vs_cpu_forward(
+        graph, lambda device: load_model(params, state, Config(), device),
+        dev, {"k3_edge_stage": 8, "k6_score_gate": 1}, "batch norm")
     sig = lambda a: 1.0 / (1.0 + np.exp(-a.astype(np.float64)))  # noqa: E731
     p, p_cpu = sig(lo), sig(lo_cpu)
     dp = float(np.abs(p - p_cpu).max())
@@ -482,16 +598,38 @@ def phase_model(dev):
     ap = average_precision(p, graph.y)
     check(abs(ap - JAX_GOLDEN_AP) < AP_TOL, f"AP {ap} vs {JAX_GOLDEN_AP}")
     emit("model", graph={"nodes": graph.num_nodes, "edges": graph.num_edges},
-         weights=os.path.relpath(WEIGHTS, ROOT),
-         launches_per_forward={k: n // 2 for k, n in counts.items()},
-         bitwise_reproducible=True, max_abs_logit_diff_vs_cpu=float(dlo.max()),
+         weights=os.path.relpath(WEIGHTS, ROOT), **fwd,
          max_abs_prob_diff_vs_cpu=dp, average_precision=ap,
-         ap_delta_vs_jax=ap - JAX_GOLDEN_AP, logit_range=[float(lo.min()),
-                                                          float(lo.max())],
-         forward_ms=fwd_ms, cpu_forward_s=cpu_s,
+         ap_delta_vs_jax=ap - JAX_GOLDEN_AP,
          tolerance={"logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL,
                     "prob_atol": PROB_ATOL, "ap": AP_TOL})
-    return {k: n // 2 for k, n in counts.items()}
+    return fwd["launches_per_forward"]
+
+
+def phase_model_unfused(dev):
+    """Golden graph, the layer-norm and the norm-free model at full width
+    and depth with seeded init weights: card vs the port's CPU run."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.models import SymGatedGCN
+
+    graph = AssemblyGraph.load(GOLDEN)
+    out = {}
+    for norm in ("layer", "none"):
+        cfg = Config()
+        cfg.model.normalization = norm
+
+        def new_model(device):
+            model = SymGatedGCN.from_config(cfg.model)
+            return model.init_weights(UNFUSED_INIT_SEED).to(device)
+
+        _, _, out[norm] = card_vs_cpu_forward(
+            graph, new_model, dev, UNFUSED_FORWARD_LAUNCHES, norm)
+    emit("model_unfused",
+         graph={"nodes": graph.num_nodes, "edges": graph.num_edges},
+         weights=f"init_weights({UNFUSED_INIT_SEED})",
+         tolerance={"logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL},
+         **out)
 
 
 def phase_infer():
@@ -540,35 +678,50 @@ def _step_result(model, loss, logits):
                         for n, b in model.named_buffers()}}
 
 
-def phase_train_step(dev):
-    """Full-width training steps from the shipped weights: card vs CPU on
-    the golden subgraph; bitwise reproducibility, launches, time and memory
-    on the whole golden graph."""
+def phase_train_step(dev, normalization: str = "batch"):
+    """Full-width training steps, from the shipped weights (batch norm) or
+    seeded init weights (layer norm): card vs CPU on the golden subgraph;
+    bitwise reproducibility, launches, time and memory on the whole golden
+    graph."""
     import numpy as np
     import torch
 
     from gnnome_tpu_torch.config import Config
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
     from gnnome_tpu_torch.infer import load_model
-    from gnnome_tpu_torch.models import load_model_weights
+    from gnnome_tpu_torch.models import SymGatedGCN, load_model_weights
     from gnnome_tpu_torch.ops import kernels as K
     from gnnome_tpu_torch.train.step import (host_units, make_example,
                                              make_optimizer, train_step)
 
-    params, state = load_model_weights(WEIGHTS)
     golden = AssemblyGraph.load(GOLDEN)
+    if normalization == "batch":
+        params, state = load_model_weights(WEIGHTS)
+        weights = os.path.relpath(WEIGHTS, ROOT)
+        want = expected_launches(**TRAIN_STEP_LAUNCHES)
+
+        def new_model(cfg, device):
+            return load_model(params, state, cfg, device)
+    else:
+        weights = f"init_weights({UNFUSED_INIT_SEED})"
+        want = expected_launches(**UNFUSED_STEP_LAUNCHES)
+
+        def new_model(cfg, device):
+            model = SymGatedGCN.from_config(cfg.model)
+            return model.init_weights(UNFUSED_INIT_SEED).to(device)
 
     def one_step(graph, cfg, device, seed):
         (unit,) = host_units(graph, cfg, np.random.default_rng(0))
         ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
                           unit.src, unit.dst, unit.n_nodes, device)
-        model = load_model(params, state, cfg, device)
+        model = new_model(cfg, device)
         opt = make_optimizer(model, cfg.train.lr)
         gen = torch.Generator(device=device).manual_seed(seed)
         loss, logits = train_step(model, opt, ex, 4.0, cfg, gen)
         return _step_result(model, loss, logits), (model, opt, ex, gen)
 
     cfg = Config()
+    cfg.model.normalization = normalization
     cfg.train.masking = False
     cfg.train.num_nodes_per_cluster = 10 ** 9         # one unit per graph
     cfg.model.dropout = 0.0                            # card vs CPU
@@ -605,7 +758,7 @@ def phase_train_step(dev):
     a, (model, opt, ex, gen) = one_step(golden, cfg, dev, 5)
     per_step = K.launch_counts()
     b, _ = one_step(golden, cfg, dev, 5)
-    check(per_step == TRAIN_STEP_LAUNCHES, f"launches per step {per_step}")
+    check(per_step == want, f"launches per step {per_step}")
     for key in ("loss", "logits"):
         check(torch.equal(a[key], b[key]), f"two card steps: {key} bitwise")
     for key in ("grads", "params", "buffers"):
@@ -624,8 +777,9 @@ def phase_train_step(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = cuda_ms(lambda: train_step(model, opt, ex, 4.0, cfg, gen),
                       reps=5, n=3, warmup=2)
-    emit("train_step", subgraph={"nodes": sub.num_nodes,
-                                 "edges": sub.num_edges},
+    emit("train_step" if normalization == "batch"
+         else f"train_step_{normalization}", weights=weights,
+         subgraph={"nodes": sub.num_nodes, "edges": sub.num_edges},
          loss_card=loss_g, loss_cpu=loss_c, cpu_step_s=cpu_s,
          max_grad_diff={"tensor": worst, "abs": grad_diff[worst],
                         "tensor_max_abs": grad_max[worst]},
@@ -647,13 +801,8 @@ def phase_train():
     import numpy as np
 
     from gnnome_tpu_torch import cli
-    from gnnome_tpu_torch.config import Config
-    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
-    from gnnome_tpu_torch.infer import score_graph
-    from gnnome_tpu_torch.models import load_model_weights
     from gnnome_tpu_torch.ops import kernels as K
-    from gnnome_tpu_torch.train.metrics import get_aps
 
     root = os.path.join(WORK, "train")
     shutil.rmtree(root, ignore_errors=True)
@@ -702,30 +851,100 @@ def phase_train():
         n_arrays = len(a.files)
     check(same, "two resumes from one checkpoint bitwise equal")
 
-    g, reads, _, _ = synthetic_assembly_graph(**OVERFIT_GRAPH)
-    small = write_dataset(os.path.join(root, "small"), g, reads)
-    t0 = time.perf_counter()
-    best = cli.main(["train", "--train", small, "--valid", small, "--asm",
-                     "hifiasm", "--name", "overfit", "--overfit", *paths,
-                     "--set", "train.num_epochs=12", "--set", "train.lr=1e-3",
-                     "--set", "train.masking=false",
-                     "--set", "train.num_nodes_per_cluster=10000"])
-    overfit_s = time.perf_counter() - t0
-    losses = [r["train/loss"] for r in log_of("overfit")]
-    check(losses[-1] < OVERFIT_LOSS_DROP * losses[0],
-          f"overfit loss {losses[0]} -> {losses[-1]}")
-    ap = get_aps(score_graph(g, *load_model_weights(best), Config()), g.y)
-    check(ap > OVERFIT_MIN_AP, f"overfit AP {ap}")
+    _, overfit, _ = overfit_run(root)
     emit("train", graph={"nodes": golden.num_nodes,
                          "edges": golden.num_edges},
          epoch_wall_s=wall_s, units={"train": units, "valid": v_units},
          launches=counts, log=log[0], resume_checkpoint_arrays=n_arrays,
-         resume_bitwise_identical=True,
-         overfit={"graph": {k: v for k, v in OVERFIT_GRAPH.items()},
-                  "nodes": g.num_nodes, "edges": g.num_edges,
-                  "losses": losses, "ap": ap, "wall_s": overfit_s},
+         resume_bitwise_identical=True, overfit=overfit,
          tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
     return counts
+
+
+def overfit_run(root: str, normalization: str = "batch"):
+    """``cli train --overfit`` on the small synthetic dataset (12 epochs, lr
+    1e-3) under ``root``, which must learn: the last loss under
+    OVERFIT_LOSS_DROP times the first, the saved model's AP above
+    OVERFIT_MIN_AP.  Returns (best-model path, summary, the launch counts
+    read just after ``cli train``)."""
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+    from gnnome_tpu_torch.infer import score_graph
+    from gnnome_tpu_torch.models import load_model_weights
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.train.metrics import get_aps
+
+    g, reads, _, _ = synthetic_assembly_graph(**OVERFIT_GRAPH)
+    small = write_dataset(os.path.join(root, "small"), g, reads)
+    name = "overfit" if normalization == "batch" else f"overfit_{normalization}"
+    t0 = time.perf_counter()
+    best = cli.main(["train", "--train", small, "--valid", small, "--asm",
+                     "hifiasm", "--name", name, "--overfit",
+                     "--set", f"paths.checkpoints_path={root}/ckpt",
+                     "--set", f"paths.models_path={root}/models",
+                     "--set", "train.num_epochs=12", "--set", "train.lr=1e-3",
+                     "--set", "train.masking=false",
+                     "--set", "train.num_nodes_per_cluster=10000",
+                     "--set", f"model.normalization={normalization}"])
+    counts = K.launch_counts()
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(root, "ckpt", f"log_{name}_seed1.jsonl")) as f:
+        losses = [json.loads(line)["train/loss"] for line in f]
+    check(losses[-1] < OVERFIT_LOSS_DROP * losses[0],
+          f"{name} loss {losses[0]} -> {losses[-1]}")
+    cfg = Config()
+    cfg.model.normalization = normalization
+    ap = get_aps(score_graph(g, *load_model_weights(best), cfg), g.y)
+    check(ap > OVERFIT_MIN_AP, f"{name} AP {ap}")
+    return best, {"graph": dict(OVERFIT_GRAPH), "nodes": g.num_nodes,
+                  "edges": g.num_edges, "losses": losses, "ap": ap,
+                  "wall_s": wall_s}, counts
+
+
+def phase_cli_layer():
+    """The layer-norm model's paths: ``cli train`` (overfit run) and ``cli
+    infer`` with the model it saved, on the card, counters from 0 before
+    each."""
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
+
+    root = os.path.join(WORK, "layer")
+    shutil.rmtree(root, ignore_errors=True)
+    K.reset_launch_counts()
+    best, overfit, train_counts = overfit_run(root, "layer")
+    # 12 epochs of one unit, no validation (--overfit)
+    check(train_counts == expected_launches(**{
+        k: 12 * n for k, n in UNFUSED_STEP_LAUNCHES.items()}),
+        f"layer-norm training launches {train_counts}")
+
+    ds, genome = make_infer_dataset(os.path.join(root, "ds"))
+    savedir = os.path.join(ds, "hifiasm")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = cli.main(["infer", "--data", ds, "--asm", "hifiasm",
+                        "--out", savedir, "--model", best,
+                        "--set", f"decode.len_threshold={INFER_LEN_THRESHOLD}",
+                        "--set", "model.normalization=layer"])
+    wall_s = time.perf_counter() - t0
+    infer_counts = K.launch_counts()
+    check(summary["device"].startswith("cuda"), "infer ran on the card")
+    check(infer_counts == expected_launches(**UNFUSED_FORWARD_LAUNCHES),
+          f"layer-norm eval-path launches {infer_counts}")
+    contigs = list(read_fastx(os.path.join(savedir, "assembly",
+                                           "0_assembly.fasta")))
+    top = max(contigs, key=lambda c: len(c.seq))
+    exact = top.seq in genome or top.seq in reverse_complement(genome)
+    check(exact, "layer norm: longest contig is an exact substring")
+    check(len(top.seq) >= INFER_LEN_THRESHOLD, "longest contig length")
+    emit("cli_layer", overfit=overfit, train_launches=train_counts,
+         infer={"wall_s": wall_s, "timing_s": summary["timing"],
+                "num_contigs": len(contigs), "longest_contig": len(top.seq),
+                "exact_substring": exact, "genome_len": len(genome),
+                "launches": infer_counts},
+         tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
+    return train_counts, infer_counts
 
 
 def main(argv=None) -> int:
@@ -745,32 +964,42 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     phase_env()
     per_forward = phase_model(dev)
+    phase_model_unfused(dev)
     k = phase_kernels(args.seed, dev, per_forward)
-    eval_launches = phase_infer()
+    paths = {"infer": phase_infer()}
     phase_train_step(dev)
-    launches = phase_train()
+    phase_train_step(dev, "layer")
+    paths["train"] = phase_train()
+    paths["train_layer"], paths["infer_layer"] = phase_cli_layer()
 
-    def row(name, src, replaces):
-        r = k[name]
+    def row(name, src, replaces, main_path, timing=None):
+        r = timing or k[name]
         flip0 = r["flip=False"]
         return {"name": name, "route": "cuda",
                 "source": f"gnnome_tpu_torch/csrc/{src}",
                 "replaces": f"gnnome_tpu/ops/pallas_kernels.py:{replaces}",
-                "launches": launches[name],
-                "launches_by_path": {"infer": eval_launches[name],
-                                     "train": launches[name]},
+                "launches": paths[main_path][name],
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r[f]["max_abs_diff"]
                                    for f in ("flip=False", "flip=True")),
                 "ms": flip0["kernel_ms"], "plain_ms": flip0["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": flip0.get("library_ms")}
 
+    # K2 at the gated mean's width Dp = 128; its error over both widths
+    k2 = row("k2_aggregate", "k2_aggregate.cu", 263, "train_layer",
+             k["k2_aggregate"]["Dp=128"])
+    k2["max_abs_err"] = max(
+        k["k2_aggregate"][w][f]["max_abs_diff"]
+        for w in ("Dp=128", "Dp=64") for f in ("flip=False", "flip=True"))
     print(json.dumps({"kernels": [
-        row("k3_edge_stage", "k3_edge_stage.cu", 355),
-        row("k6_score_gate", "k6_score_gate.cu", 709),
-        row("k7_gate_stats", "k7_gate_stats.cu", 457),
-        row("k8_train_layer_bwd", "k8_train_layer_bwd.cu", 604),
-        row("k9_aggregate", "k9_aggregate.cu", 771),
+        row("k1_gather_gate", "k1_gather_gate.cu", 207, "train_layer"),
+        k2,
+        row("k3_edge_stage", "k3_edge_stage.cu", 355, "train"),
+        row("k6_score_gate", "k6_score_gate.cu", 709, "train"),
+        row("k7_gate_stats", "k7_gate_stats.cu", 457, "train"),
+        row("k8_train_layer_bwd", "k8_train_layer_bwd.cu", 604, "train"),
+        row("k9_aggregate", "k9_aggregate.cu", 771, "train"),
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,8 @@ def load_model(params, state, cfg: Config, device) -> SymGatedGCN:
     """The eval-mode ``SymGatedGCN`` for ``cfg.model`` with the numpy
     pytree weights ``(params, state)``, on ``device``."""
     model = SymGatedGCN.from_config(cfg.model)
-    model.load_state_dict(module_state_from_numpy(params, state))
+    model.load_state_dict(module_state_from_numpy(params, state,
+                                                  cfg.model.normalization))
     return model.to(device)
 
 

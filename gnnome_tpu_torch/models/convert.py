@@ -15,6 +15,13 @@ reference ``.pt`` loads into the module directly.  Key map:
 Linear weights are ``[in, out]`` in the pytrees and ``[out, in]`` in
 ``nn.Linear``; the pytrees stack the GNN layers ``[L, ...]``, the module keeps
 one submodule per layer.
+
+The pytrees hold ``bn_*`` leaves whatever the normalisation (the JAX
+package's ``init_params`` makes them for every model).  The module has them
+as ``BatchNorm1d`` (batch), as ``LayerNorm`` weight and bias (layer: the
+running statistics are dropped), or not at all (none).  Going back, the
+leaves a module lacks are written with the JAX init values: scale 1,
+bias 0, mean 0, var 1, count 0.
 """
 from __future__ import annotations
 
@@ -48,15 +55,38 @@ def _load_state_dict(path: str) -> dict:
             for k, v in sd.items()}
 
 
+def _norm_params(sd: dict, prefix: str, d: int) -> dict:
+    """scale/bias of a BatchNorm1d or LayerNorm, or the init values when the
+    module has none (normalization='none')."""
+    if f"{prefix}.weight" not in sd:
+        return {"scale": np.ones(d, np.float32),
+                "bias": np.zeros(d, np.float32)}
+    return {"scale": np.asarray(sd[f"{prefix}.weight"], np.float32),
+            "bias": np.asarray(sd[f"{prefix}.bias"], np.float32)}
+
+
+def _norm_state(sd: dict, prefix: str, d: int) -> dict:
+    """BatchNorm running statistics, or the init values when the module
+    keeps none (layer, none)."""
+    if f"{prefix}.running_mean" not in sd:
+        return {"mean": np.zeros(d, np.float32), "var": np.ones(d, np.float32),
+                "count": np.asarray(0, np.int64)}
+    return {"mean": np.asarray(sd[f"{prefix}.running_mean"], np.float32),
+            "var": np.asarray(sd[f"{prefix}.running_var"], np.float32),
+            "count": np.asarray(sd[f"{prefix}.num_batches_tracked"],
+                                np.int64)}
+
+
 def numpy_from_module_state(path_or_sd) -> tuple[dict, dict]:
-    """(params, state) numpy pytrees from a module state dict or a reference
-    ``.pt`` checkpoint path."""
+    """(params, state) numpy pytrees from a module state dict (of any
+    normalisation) or a reference ``.pt`` checkpoint path."""
     sd = _load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else {
         k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
         for k, v in path_or_sd.items()}
 
     n_layers = 1 + max(int(k.split(".")[2]) for k in sd
                        if k.startswith("gnn.convs."))
+    d = np.asarray(sd["gnn.convs.0.A_1.weight"]).shape[0]
 
     def stack(fn):
         return _stack([fn(i) for i in range(n_layers)])
@@ -69,31 +99,26 @@ def numpy_from_module_state(path_or_sd) -> tuple[dict, dict]:
         "gnn": stack(lambda i: {
             **{name: _lin(sd, f"gnn.convs.{i}.{t}")
                for name, t in _LAYER_LINEARS},
-            **{bn: {"scale": np.asarray(sd[f"gnn.convs.{i}.{bn}.weight"],
-                                        np.float32),
-                    "bias": np.asarray(sd[f"gnn.convs.{i}.{bn}.bias"],
-                                       np.float32)}
+            **{bn: _norm_params(sd, f"gnn.convs.{i}.{bn}", d)
                for bn in ("bn_h", "bn_e")},
         }),
         "predictor": {w: _lin(sd, f"predictor.{w}") for w in ("W1", "W2", "W3")},
     }
     state = {
         "gnn": stack(lambda i: {
-            bn: {"mean": np.asarray(sd[f"gnn.convs.{i}.{bn}.running_mean"],
-                                    np.float32),
-                 "var": np.asarray(sd[f"gnn.convs.{i}.{bn}.running_var"],
-                                   np.float32),
-                 "count": np.asarray(
-                     sd[f"gnn.convs.{i}.{bn}.num_batches_tracked"], np.int64)}
+            bn: _norm_state(sd, f"gnn.convs.{i}.{bn}", d)
             for bn in ("bn_h", "bn_e")
         }),
     }
     return params, state
 
 
-def module_state_from_numpy(params: dict, state: dict) -> dict:
-    """``nn.Module`` state dict (CPU tensors) from the numpy pytrees: linear
-    weights transposed to ``[out, in]``, stacked GNN leaves split per layer."""
+def module_state_from_numpy(params: dict, state: dict,
+                            normalization: str = "batch") -> dict:
+    """``nn.Module`` state dict (CPU tensors) from the numpy pytrees for a
+    model of ``normalization``: linear weights transposed to ``[out, in]``,
+    stacked GNN leaves split per layer, ``bn_*`` leaves kept as the module
+    has them."""
     import torch
 
     sd = {}
@@ -114,11 +139,15 @@ def module_state_from_numpy(params: dict, state: dict) -> dict:
             put_lin(f"gnn.convs.{i}.{t}",
                     {"w": np.asarray(gnn[name]["w"])[i],
                      "b": np.asarray(gnn[name]["b"])[i]})
+        if normalization == "none":
+            continue
         for bn in ("bn_h", "bn_e"):
             sd[f"gnn.convs.{i}.{bn}.weight"] = torch.from_numpy(
                 np.asarray(gnn[bn]["scale"])[i].copy())
             sd[f"gnn.convs.{i}.{bn}.bias"] = torch.from_numpy(
                 np.asarray(gnn[bn]["bias"])[i].copy())
+            if normalization == "layer":
+                continue
             st = state["gnn"][bn]
             sd[f"gnn.convs.{i}.{bn}.running_mean"] = torch.from_numpy(
                 np.asarray(st["mean"])[i].copy())

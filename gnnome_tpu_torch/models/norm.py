@@ -1,12 +1,17 @@
-"""BatchNorm with the JAX package's arithmetic (``gnnome_tpu/models/norm.py``),
-over ``nn.BatchNorm1d`` modules so the state-dict names and buffers stay the
-reference's.
+"""Normalisation with the JAX package's arithmetic (``gnnome_tpu/models/
+norm.py``), over ``nn.BatchNorm1d`` / ``nn.LayerNorm`` modules so the
+state-dict names and buffers stay the reference's.
+
+BatchNorm:
 
 * eval: normalise with the running statistics (norm.py:64-68);
 * training (norm.py:47-63): normalise with the biased batch variance
   (two-pass), update the running statistics with the unbiased variance at
   momentum 0.1, ``repeat_updates`` times, and advance
   ``num_batches_tracked`` as often (the JAX ``count``).
+
+LayerNorm (norm.py:111-115) is the same in eval and training; ``none``
+(norm.py:118-128) is the identity.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+LN_EPS = 1e-5
 
 
 def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -62,3 +68,17 @@ def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,
                          var.detach() * (n / (n - 1) if n > 1 else 1.0),
                          repeat_updates)
     return y * bn.weight + bn.bias
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """Per-row LayerNorm in the JAX package's explicit form: row mean,
+    biased row variance, ``(x - mean) * rsqrt(var + eps) * weight + bias``."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + LN_EPS) * ln.weight + ln.bias
+
+
+def apply_norm(norm: nn.LayerNorm | None, x: torch.Tensor) -> torch.Tensor:
+    """The unfused layer's normalisation: LayerNorm, or the identity for
+    ``normalization='none'`` (no norm module)."""
+    return x if norm is None else layer_norm(norm, x)

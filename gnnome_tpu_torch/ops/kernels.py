@@ -1,9 +1,13 @@
-"""Hand-written CUDA kernels K3, K6, K7, K8 and K9, their plain PyTorch
-versions, and the build that turns ``csrc/*.cu`` into one shared library.
+"""Hand-written CUDA kernels K1, K2, K3, K6, K7, K8 and K9, their plain
+PyTorch versions, and the build that turns ``csrc/*.cu`` into one shared
+library.
 
-K3 (edge stage) and K6 (score gate) carry the forward; K7 (gate batch
-statistics), K8 (edge-stage adjoint) and K9 (score-gate adjoint) carry
-training (``ops/message.py`` wraps them in ``torch.autograd.Function``s).
+K3 (edge stage) and K6 (score gate) carry the batch-norm model's forward;
+K7 (gate batch statistics), K8 (edge-stage adjoint) and K9 (score-gate
+adjoint) carry its training.  K1 (endpoint gathers and gate) and K2
+(two-sided aggregation) carry the layer-norm and norm-free model, forward
+and backward (``ops/message.py`` wraps them in
+``torch.autograd.Function``s).
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper counts
@@ -31,9 +35,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
-SOURCES = ("k3_edge_stage.cu", "k6_score_gate.cu", "k7_gate_stats.cu",
-           "k8_train_layer_bwd.cu", "k9_aggregate.cu")
-HEADERS = ("edge_math.cuh",)
+SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
+           "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
+           "k9_aggregate.cu")
+HEADERS = ("edge_math.cuh", "csr_sum.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -105,6 +110,16 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(build_kernels())
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            lib.gn_k1_gather_gate.restype = I
+            lib.gn_k1_gather_gate.argtypes = [
+                L, I, P, P,                  # n_edges, d, u_idx, v_idx
+                P, L, P, L,                  # proj_u, ldu, proj_v, ldv
+                P, P, P]                     # b3e, out, stream
+            lib.gn_k2_aggregate.restype = I
+            lib.gn_k2_aggregate.argtypes = [
+                I, I, P, P, P, P,            # n_nodes, width, v_ptr, v_perm, u_ptr, u_perm
+                P, L, P, L,                  # pay_u, ldu, pay_v, ldv
+                P, P, P]                     # sum_u, sum_v, stream
             lib.gn_k3_edge_stage.restype = I
             lib.gn_k3_edge_stage.argtypes = [
                 I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx
@@ -167,6 +182,92 @@ def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _library().gn_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+# ------------------------------------------------------------------------- K1
+def k1_gather_gate_plain(u_idx, v_idx, proj_u, proj_v, b3e):
+    """Plain PyTorch K1: ``[(B1h[u] + B2h[v]) + b3e | A2h[u] | A3h[v]]``
+    ([E, 3d]) with ``proj_u`` = [B1h | A2h], ``proj_v`` = [B2h | A3h]
+    ([N, 2d]) and ``b3e`` [E, d] in slot order."""
+    d = b3e.shape[1]
+    gu = proj_u.index_select(0, u_idx)
+    gv = proj_v.index_select(0, v_idx)
+    return torch.cat([(gu[:, :d] + gv[:, :d]) + b3e, gu[:, d:], gv[:, d:]],
+                     dim=1)
+
+
+def k1_gather_gate(u_idx, v_idx, proj_u, proj_v, b3e):
+    """K1, the unfused endpoint gathers and gate (csrc/k1_gather_gate.cu).
+    ``proj_u``/``proj_v`` may be column slices (row-strided) of the
+    projection.  Returns what ``k1_gather_gate_plain`` returns."""
+    if proj_u.device.type == "cpu":
+        return k1_gather_gate_plain(u_idx, v_idx, proj_u, proj_v, b3e)
+    if proj_u.device.type != "cuda":
+        raise ValueError(f"K1: unsupported device {proj_u.device}")
+    dev = proj_u.device
+    E, d = b3e.shape
+    n = proj_u.shape[0]
+    _check("proj_u", proj_u, torch.float32, (n, 2 * d), dev,
+           rows_contiguous=False)
+    _check("proj_v", proj_v, torch.float32, (n, 2 * d), dev,
+           rows_contiguous=False)
+    _check("b3e", b3e, torch.float32, (E, d), dev)
+    for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
+        _check(name, t, torch.int32, (E,), dev)
+    out = torch.empty((E, 3 * d), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_k1_gather_gate(
+            E, d, _ptr(u_idx), _ptr(v_idx), _ptr(proj_u), proj_u.stride(0),
+            _ptr(proj_v), proj_v.stride(0), _ptr(b3e), _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "K1")
+    k1_gather_gate.launches += 1
+    return out
+
+
+# ------------------------------------------------------------------------- K2
+def k2_aggregate_plain(u_idx, v_idx, pay_u, pay_v, n_nodes: int):
+    """Plain PyTorch K2: ``(sum_u [N, Dp], sum_v [N, Dp])``, ``pay_u``
+    [E, Dp] summed into the u endpoint and ``pay_v`` into the v endpoint."""
+    Dp = pay_u.shape[1]
+    sum_u = torch.zeros((n_nodes, Dp), dtype=pay_u.dtype, device=pay_u.device)
+    sum_u.index_add_(0, u_idx, pay_u)
+    sum_v = torch.zeros((n_nodes, Dp), dtype=pay_v.dtype, device=pay_v.device)
+    sum_v.index_add_(0, v_idx, pay_v)
+    return sum_u, sum_v
+
+
+def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
+    """K2, the unfused two-sided aggregation (csrc/k2_aggregate.cu).
+    ``v_csr`` / ``u_csr`` as for K3; the payloads may be column slices
+    (row-strided).  Returns what ``k2_aggregate_plain`` returns."""
+    n = v_csr[0].shape[0] - 1
+    if pay_u.device.type == "cpu":
+        return k2_aggregate_plain(u_idx, v_idx, pay_u, pay_v, n)
+    if pay_u.device.type != "cuda":
+        raise ValueError(f"K2: unsupported device {pay_u.device}")
+    dev = pay_u.device
+    E, Dp = pay_u.shape
+    if Dp > 128:
+        raise ValueError(f"K2: Dp={Dp} > 128 not supported")
+    for name, t in (("pay_u", pay_u), ("pay_v", pay_v)):
+        _check(name, t, torch.float32, (E, Dp), dev, rows_contiguous=False)
+    for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
+        _check(name, t, torch.int32, (E,), dev)
+    _check_csr(v_csr, u_csr, n, E, dev)
+    sum_u = torch.empty((n, Dp), dtype=torch.float32, device=dev)
+    sum_v = torch.empty((n, Dp), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_k2_aggregate(
+            n, Dp, _ptr(v_csr[0]), _ptr(v_csr[1]), _ptr(u_csr[0]),
+            _ptr(u_csr[1]), _ptr(pay_u), pay_u.stride(0), _ptr(pay_v),
+            pay_v.stride(0), _ptr(sum_u), _ptr(sum_v),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "K2")
+    k2_aggregate.launches += 1
+    return sum_u, sum_v
 
 
 # ------------------------------------------------------------------------- K3
@@ -430,7 +531,8 @@ def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
 
 
 # ------------------------------------------------------------ launch counting
-KERNELS = {"k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
+KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
+           "k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
            "k7_gate_stats": k7_gate_stats,
            "k8_train_layer_bwd": k8_train_layer_bwd,
            "k9_aggregate": k9_aggregate}

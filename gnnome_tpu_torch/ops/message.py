@@ -1,26 +1,33 @@
 """Message-passing ops of the SymGatedGCN, over a ``DeviceGraph``.
 
-The PyTorch counterparts of ``gnnome_tpu/ops/message.py``'s
-``fused_eval_edge_stage``, ``fused_train_stage`` and ``fused_score_gate``:
-they resolve the endpoint roles (``flip=True`` is the reversed-graph pass:
-u = dst, v = src, as in message.py:325,690) and call the kernel wrappers of
-``ops/kernels.py``.  Edge arrays are unpacked ``[E, d]`` in slot order: no
-padding, no window plans, no overflow patching.
+The PyTorch counterparts of ``gnnome_tpu/ops/message.py``'s fused ops
+(``fused_eval_edge_stage``, ``fused_train_stage``, ``fused_score_gate``:
+the batch-norm model) and unfused ops (``fused_gate_gather``,
+``gated_mean_pair``, ``gather_uv_planned``: the layer-norm and norm-free
+model): they resolve the endpoint roles (``flip=True`` is the
+reversed-graph pass: u = dst, v = src, as in message.py:88,325,690) and call
+the kernel wrappers of ``ops/kernels.py``.  Edge arrays are unpacked
+``[E, d]`` in slot order: no padding, no window plans, no overflow
+patching.
 
-Training runs through two ``torch.autograd.Function``s whose backwards are
-kernels too: ``train_edge_stage`` (forward K7 + K3, backward K8) and
-``score_gate`` (forward K6, backward K9).  Every reduction into nodes walks
-a sorted segment inside a kernel, so a training step is bitwise
-reproducible on the card; no gather with repeated indices is left to
-autograd (its backward would be an atomic ``index_add_``).
+Every op is differentiable through a ``torch.autograd.Function`` whose
+backward is a kernel too, as in the JAX package: ``train_edge_stage``
+(forward K7 + K3, backward K8), ``score_gate`` (K6, backward K9),
+``gate_gather`` (K1, backward K2), the aggregation under
+``gated_mean_pair`` (K2, backward two row gathers) and ``gather_uv`` (row
+gathers, backward K2).  Every reduction into nodes walks a sorted segment
+inside a kernel, so a training step is bitwise reproducible on the card; no
+gather with repeated indices is left to autograd (its backward would be an
+atomic ``index_add_``).
 """
 from __future__ import annotations
 
 import torch
 
 from .graph_tensors import DeviceGraph
-from .kernels import (k3_edge_stage, k6_score_gate, k7_gate_stats,
-                      k8_train_layer_bwd, k9_aggregate)
+from .kernels import (k1_gather_gate, k2_aggregate, k3_edge_stage,
+                      k6_score_gate, k7_gate_stats, k8_train_layer_bwd,
+                      k9_aggregate)
 
 BN_EPS = 1e-5
 
@@ -177,3 +184,91 @@ def score_gate(g: DeviceGraph, flip: bool, puv, be):
     Differentiable: the backward scatters ``dz * (z > 0)`` into u and v
     with K9 (message.py:713-734)."""
     return _ScoreGate.apply(g, flip, puv, be)
+
+
+# ------------------------------------------------------------ unfused layer
+class _GateGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, flip, proj_u, proj_v, b3e):
+        u_idx, v_idx, _, _ = g.roles(flip)
+        ctx.g, ctx.flip = g, flip
+        return k1_gather_gate(u_idx, v_idx, proj_u, proj_v, b3e)
+
+    @staticmethod
+    def backward(ctx, d_g3):
+        u_idx, v_idx, v_csr, u_csr = ctx.g.roles(ctx.flip)
+        d_g3 = d_g3.contiguous()
+        d = d_g3.shape[1] // 3
+        # the u-side payload [d_gate | d_a2h] is a column slice of d_g3
+        d_pu, d_pv = k2_aggregate(
+            u_idx, v_idx, v_csr, u_csr, d_g3[:, :2 * d],
+            torch.cat([d_g3[:, :d], d_g3[:, 2 * d:]], dim=1))
+        return None, None, d_pu, d_pv, d_g3[:, :d]
+
+
+def gate_gather(g: DeviceGraph, flip: bool, proj_u, proj_v, b3e):
+    """Endpoint gathers and gate of the unfused layer (K1): the counterpart
+    of JAX ``fused_gate_gather`` (message.py:78-97,185-225).  Returns
+    ``[gate | A2h[u] | A3h[v]]`` ([E, 3d]) with gate = B1h[u] + B2h[v] +
+    b3e; ``proj_u`` = [B1h | A2h], ``proj_v`` = [B2h | A3h] ([N, 2d], may be
+    column slices).  The backward sums ``[d_gate | d_a2h]`` into u and
+    ``[d_gate | d_a3h]`` into v with K2; ``d_b3e = d_gate``."""
+    return _GateGather.apply(g, flip, proj_u, proj_v, b3e)
+
+
+class _Aggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, flip, pay_u, pay_v):
+        u_idx, v_idx, v_csr, u_csr = g.roles(flip)
+        ctx.g, ctx.flip = g, flip
+        return k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v)
+
+    @staticmethod
+    def backward(ctx, d_sum_u, d_sum_v):
+        u_idx, v_idx, _, _ = ctx.g.roles(ctx.flip)
+        return (None, None, d_sum_u.index_select(0, u_idx),
+                d_sum_v.index_select(0, v_idx))
+
+
+def aggregate(g: DeviceGraph, flip: bool, pay_u, pay_v):
+    """``(sum_u, sum_v)`` ([N, Dp]): ``pay_u`` [E, Dp] summed into u and
+    ``pay_v`` into v (K2; JAX ``_aggregate_pallas``, message.py:640-679).
+    The backward is the two row gathers ``d_sum_u[u]``, ``d_sum_v[v]``."""
+    return _Aggregate.apply(g, flip, pay_u, pay_v)
+
+
+def gated_mean_pair(g: DeviceGraph, flip: bool, sigma, a2h_u, a3h_v,
+                    eps: float):
+    """Both directions of the gated mean (JAX ``gated_mean_pair``,
+    message.py:748-778): ``h_fwd[i]`` = sum over edges with v = i of
+    ``sigma * A2h[u]`` over (sum of ``sigma`` + eps), ``h_bwd`` likewise by
+    u with ``A3h[v]``.  One K2 over the payloads ``[sigma * a3h_v | sigma]``
+    (by u) and ``[sigma * a2h_u | sigma]`` (by v)."""
+    d = a2h_u.shape[1]
+    pay_v = torch.cat([sigma * a2h_u, sigma], dim=1)
+    pay_u = torch.cat([sigma * a3h_v, sigma], dim=1)
+    sum_u, sum_v = aggregate(g, flip, pay_u, pay_v)
+    h_fwd = sum_v[:, :d] / (sum_v[:, d:] + eps)
+    h_bwd = sum_u[:, :d] / (sum_u[:, d:] + eps)
+    return h_fwd, h_bwd
+
+
+class _GatherUV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, flip, h):
+        u_idx, v_idx, _, _ = g.roles(flip)
+        ctx.g, ctx.flip = g, flip
+        return h.index_select(0, u_idx), h.index_select(0, v_idx)
+
+    @staticmethod
+    def backward(ctx, d_u, d_v):
+        u_idx, v_idx, v_csr, u_csr = ctx.g.roles(ctx.flip)
+        sum_u, sum_v = k2_aggregate(u_idx, v_idx, v_csr, u_csr, d_u, d_v)
+        return None, None, sum_u + sum_v
+
+
+def gather_uv(g: DeviceGraph, flip: bool, h):
+    """``(h[u], h[v])`` for the unfused score predictor (JAX
+    ``gather_uv_planned``, message.py:153-182): row gathers forward, K2
+    backward (``d_h = sum_u(d_u) + sum_v(d_v)``)."""
+    return _GatherUV.apply(g, flip, h)

@@ -149,8 +149,8 @@ def _load_ckpt(path, model, opt, scheduler, rng_np, generator, device):
     """Restores everything ``_save_ckpt`` wrote; returns (start_epoch,
     loss_train, loss_valid)."""
     trees = load_pytrees(path)
-    model.load_state_dict(module_state_from_numpy(trees["params"],
-                                                  trees["state"]))
+    model.load_state_dict(module_state_from_numpy(
+        trees["params"], trees["state"], model.normalization))
     for name, p in model.named_parameters():
         st = trees["opt"][name]
         opt.state[p] = {

@@ -2,10 +2,13 @@
 """Where the time of one gnnome_tpu_torch eval forward goes, on a GPU.
 
     python scripts/torch_eval_profile.py [--iters 10] [--out DIR]
+        [--normalization batch|layer|none]
 
 Scores the E. coli-scale golden graph (tests/fixtures/golden_ecoli_v1.npz)
-with weights/weights.npz on the card under ``torch.profiler`` and prints one
-JSON line: the forward's wall time (host clock around synchronised runs),
+with weights/weights.npz (batch norm, the default) or seeded init weights
+(``init_weights(7)``: layer norm, none) on the card under ``torch.profiler``
+and prints one JSON line: the forward's wall time (host clock around
+synchronised runs),
 the device busy time per kernel name summed over the profiled forwards, the
 share of the forward the device sat idle, and the card (``nvidia-smi`` name
 and power limit).  With ``--out`` it also writes the Chrome trace there.
@@ -28,6 +31,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--out", default=None, help="directory for trace.json")
+    ap.add_argument("--normalization", default="batch",
+                    choices=("batch", "layer", "none"))
     args = ap.parse_args()
 
     import torch
@@ -39,16 +44,21 @@ def main() -> int:
     from gnnome_tpu_torch.config import Config, resolve_device
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
     from gnnome_tpu_torch.infer import load_model
-    from gnnome_tpu_torch.models import (edge_features, load_model_weights,
-                                         node_features)
+    from gnnome_tpu_torch.models import (SymGatedGCN, edge_features,
+                                         load_model_weights, node_features)
     from gnnome_tpu_torch.ops import DeviceGraph
 
     dev = resolve_device("cuda")
     graph = AssemblyGraph.load(os.path.join(ROOT, "tests", "fixtures",
                                             "golden_ecoli_v1.npz"))
-    params, state = load_model_weights(os.path.join(ROOT, "weights",
-                                                    "weights.npz"))
-    model = load_model(params, state, Config(), dev)
+    cfg = Config()
+    cfg.model.normalization = args.normalization
+    if args.normalization == "batch":
+        params, state = load_model_weights(os.path.join(ROOT, "weights",
+                                                        "weights.npz"))
+        model = load_model(params, state, cfg, dev)
+    else:
+        model = SymGatedGCN.from_config(cfg.model).init_weights(7).to(dev)
     g = DeviceGraph.from_graph(graph, dev)
     x = torch.as_tensor(node_features(graph), device=dev)
     e = torch.as_tensor(edge_features(graph), device=dev)
@@ -89,8 +99,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({
-        "card": card, "graph": {"nodes": graph.num_nodes,
-                                "edges": graph.num_edges},
+        "card": card, "normalization": args.normalization,
+        "graph": {"nodes": graph.num_nodes, "edges": graph.num_edges},
         "forward_ms_median": walls[len(walls) // 2] * 1e3,
         "profiled_forward_ms": fwd_us / 1e3,
         "device_busy_ms_per_forward": busy_us / args.iters / 1e3,

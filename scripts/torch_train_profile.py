@@ -2,10 +2,12 @@
 """Where the time of one gnnome_tpu_torch training step goes, on a GPU.
 
     python scripts/torch_train_profile.py [--iters 5] [--out DIR]
+        [--normalization batch|layer|none]
 
 Runs symmetry-loss train steps (two passes, backward, Adam) of the
 full-width SymGatedGCN (d=64, 8 layers, dropout 0.2), started from
-weights/weights.npz, on the E. coli-scale golden graph
+weights/weights.npz (batch norm, the default) or seeded init weights
+(``init_weights(7)``: layer norm, none), on the E. coli-scale golden graph
 (tests/fixtures/golden_ecoli_v1.npz) as one unit (no masking, no
 clustering), under ``torch.profiler``, and prints one JSON line: the step's
 wall time (host clock around synchronised steps, unprofiled), the device
@@ -32,6 +34,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=None, help="directory for trace.json")
+    ap.add_argument("--normalization", default="batch",
+                    choices=("batch", "layer", "none"))
     args = ap.parse_args()
 
     import numpy as np
@@ -44,7 +48,7 @@ def main() -> int:
     from gnnome_tpu_torch.config import Config, resolve_device
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
     from gnnome_tpu_torch.infer import load_model
-    from gnnome_tpu_torch.models import load_model_weights
+    from gnnome_tpu_torch.models import SymGatedGCN, load_model_weights
     from gnnome_tpu_torch.train.step import (host_units, make_example,
                                              make_optimizer, train_step)
 
@@ -52,14 +56,18 @@ def main() -> int:
     graph = AssemblyGraph.load(os.path.join(ROOT, "tests", "fixtures",
                                             "golden_ecoli_v1.npz"))
     cfg = Config()
+    cfg.model.normalization = args.normalization
     cfg.train.masking = False
     cfg.train.num_nodes_per_cluster = 10 ** 9        # the graph is one unit
     (unit,) = host_units(graph, cfg, np.random.default_rng(0))
     ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
                       unit.src, unit.dst, unit.n_nodes, dev)
-    params, state = load_model_weights(os.path.join(ROOT, "weights",
-                                                    "weights.npz"))
-    model = load_model(params, state, cfg, dev)
+    if args.normalization == "batch":
+        params, state = load_model_weights(os.path.join(ROOT, "weights",
+                                                        "weights.npz"))
+        model = load_model(params, state, cfg, dev)
+    else:
+        model = SymGatedGCN.from_config(cfg.model).init_weights(7).to(dev)
     opt = make_optimizer(model, cfg.train.lr)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -108,8 +116,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({
-        "card": card, "graph": {"nodes": graph.num_nodes,
-                                "edges": graph.num_edges},
+        "card": card, "normalization": args.normalization,
+        "graph": {"nodes": graph.num_nodes, "edges": graph.num_edges},
         "step_ms_median": step_ms,
         "profiled_step_ms": prof_ms,
         "device_busy_ms_per_step": busy_ms,

@@ -1,7 +1,7 @@
-"""The CUDA kernels K3, K6, K7, K8 and K9 against their plain PyTorch
-versions, on the card, and two card train steps from one state bitwise
-equal.  Every test here is ``cuda``-marked and skips where no GPU is
-present.
+"""The CUDA kernels K1, K2, K3, K6, K7, K8 and K9 against their plain
+PyTorch versions, on the card, and two card train steps from one state
+bitwise equal (batch norm and layer norm).  Every test here is
+``cuda``-marked and skips where no GPU is present.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 without them; skip the JAX-importing conftest there:
@@ -13,7 +13,8 @@ sigmoid's exp may differ by an ulp): ``atol=1e-5`` and exact; node sums add
 ~30 terms in another order (the plain version scatters with atomics):
 ``rtol=1e-5, atol=1e-4``.  K7 / K8's float64 global sums: ``rtol=1e-9``
 relative to the sum of magnitudes (the order differs); K8's per-edge x is
-exact, d_eo ``atol=1e-5`` (sigmoid); K9's sums as K3's.
+exact, d_eo ``atol=1e-5`` (sigmoid); K9's and K2's sums as K3's; K1 repeats
+the plain version's adds: exact.
 """
 import pytest
 import torch
@@ -90,6 +91,49 @@ def test_wrapper_rejects_bad_inputs(graph, cuda):
     with pytest.raises(ValueError):
         K.k6_score_gate(u, v, puv, torch.zeros(graph.n_edges + 1, 64,
                                                device=cuda))
+
+
+@pytest.mark.parametrize("d", [16, 64, 6])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k1_kernel_vs_plain(graph, cuda, flip, d):
+    """d=16/64 take the float4 path on strided column slices; d=6 the
+    per-feature path."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    proj = torch.randn(graph.n_nodes, 5 * d, device=cuda, generator=gen)
+    proj_u, proj_v = proj[:, :2 * d], proj[:, 2 * d:4 * d]   # strided rows
+    b3e = torch.randn(graph.n_edges, d, device=cuda, generator=gen)
+    u, v, _, _ = graph.roles(flip)
+    n0 = K.k1_gather_gate.launches
+    got = K.k1_gather_gate(u, v, proj_u, proj_v, b3e)
+    assert K.k1_gather_gate.launches == n0 + 1
+    ref = K.k1_gather_gate_plain(u, v, proj_u, proj_v, b3e)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("width", [16, 64, 128])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k2_kernel_vs_plain(graph, cuda, flip, width):
+    """Payloads as the backward of K1 passes them: a column slice of a
+    wider array (u side) and a dense array (v side)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    wide = torch.randn(graph.n_edges, width + 8, device=cuda, generator=gen)
+    pay_u = wide[:, :width]
+    pay_v = torch.randn(graph.n_edges, width, device=cuda, generator=gen)
+    u, v, v_csr, u_csr = graph.roles(flip)
+    n0 = K.k2_aggregate.launches
+    got = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+    assert K.k2_aggregate.launches == n0 + 1
+    ref = K.k2_aggregate_plain(u, v, pay_u, pay_v, graph.n_nodes)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-4)
+    again = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    with pytest.raises(ValueError, match="Dp"):
+        K.k2_aggregate(u, v, v_csr, u_csr,
+                       torch.zeros(graph.n_edges, 129, device=cuda),
+                       torch.zeros(graph.n_edges, 129, device=cuda))
 
 
 def _train_inputs(graph, cuda, d, seed):
@@ -169,9 +213,14 @@ def test_k9_kernel_vs_plain(graph, cuda, flip, h):
     assert all(torch.equal(p, q) for p, q in zip(got, again))
 
 
-def test_two_card_train_steps_bitwise_equal(cuda):
+@pytest.mark.parametrize("norm,launches", [
+    ("batch", {"k3_edge_stage": 32, "k6_score_gate": 4, "k7_gate_stats": 32,
+               "k8_train_layer_bwd": 32, "k9_aggregate": 4}),
+    ("layer", {"k1_gather_gate": 32, "k2_aggregate": 68})])
+def test_two_card_train_steps_bitwise_equal(cuda, norm, launches):
     """Two train steps from one state (weights, data, dropout seed) give the
-    same loss, logits, gradients and parameters after Adam, bit for bit."""
+    same loss, logits, gradients and parameters after Adam, bit for bit,
+    and launch only the kernels of the model's path (two 8-layer steps)."""
     import numpy as np
 
     from gnnome_tpu_torch.config import Config
@@ -182,6 +231,7 @@ def test_two_card_train_steps_bitwise_equal(cuda):
     g, _, _, _ = synthetic_assembly_graph(n_reads=300, genome_len=25000,
                                           read_len=400, seed=13)
     cfg = Config()
+    cfg.model.normalization = norm
     cfg.train.masking = False
     cfg.train.num_nodes_per_cluster = 10_000
     (unit,) = host_units(g, cfg, np.random.default_rng(0))
@@ -197,9 +247,7 @@ def test_two_card_train_steps_bitwise_equal(cuda):
         grads = [p.grad.clone() for p in model.parameters()]
         outs.append((loss, logits, grads,
                      [p.detach().clone() for p in model.parameters()]))
-    assert K.launch_counts() == {"k3_edge_stage": 32, "k6_score_gate": 4,
-                                 "k7_gate_stats": 32,
-                                 "k8_train_layer_bwd": 32, "k9_aggregate": 4}
+    assert K.launch_counts() == {**{k: 0 for k in K.KERNELS}, **launches}
     (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
     assert torch.isfinite(lo0).all()
     assert torch.equal(l0, l1) and torch.equal(lo0, lo1)
