@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels (``build/libgnnome_kernels.so``) and the host
 library (``build/libgnnome_host.so``) from the sources in the checkout, then
-runs its phases, each printing one JSON line:
+runs its phases, each printing one JSON line (with ``elapsed_s``, the
+seconds since the script started):
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, compute capability, build seconds, the compiler's per-kernel
@@ -24,7 +25,10 @@ runs its phases, each printing one JSON line:
    ``--seed``; each kernel against its plain PyTorch version on the card,
    and timed (CUDA events around 10 back-to-back calls, median of 10 such
    repeats, after warm-up) beside its least possible time and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time; for K3 and
+   K8 also the memory rate their measured time gives the bytes they move.
+   Then K3, K7 and K8 at d = 192 and K2, K9 at width 256 on the same
+   graph, each against its plain version and bitwise reproducible.
 5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
@@ -73,6 +77,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_ecoli_v1.npz")
 WEIGHTS = os.path.join(ROOT, "weights", "weights.npz")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+START = time.perf_counter()
 
 # the phase-4 dataset: an error-free 50 kb genome at ~7x; no false edges, so
 # the decoded contig must be exact (with false edges the shipped weights
@@ -100,6 +105,9 @@ LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 PROB_ATOL = 1e-5
 JAX_GOLDEN_AP = 0.9992886          # the JAX package, CPU, same graph+weights
 AP_TOL = 1e-4
+# the width checks of the kernels phase: d above 128 for K3, K7 and K8 (two
+# column chunks), and payloads of 256 for K2 and K9
+WIDE_D, WIDE_PAY = 192, 256
 # K7 / K8 global sums are float64 in another order than the plain version's:
 # within 1e-9 of the summed magnitudes.  K8's x is exact (the same
 # operations), d_eo within EDGE_ATOL (sigmoid), its node sums as K3's.
@@ -144,7 +152,8 @@ def check(cond: bool, what: str) -> None:
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -256,8 +265,105 @@ def phase_env():
          ptxas=ptxas)
 
 
+def bn_rows(d: int, randn, rand):
+    """Eval/batch BatchNorm rows [mean, rsqrt(var + eps), gamma, beta]."""
+    import torch
+
+    return torch.stack([randn(d) * 0.3, rand(d) * 1.5 + 0.5, rand(d) + 0.5,
+                        randn(d) * 0.1])
+
+
+def within_sums(got, ref) -> bool:
+    return bool(((got - ref).abs() <= SUM_ATOL + SUM_RTOL * ref.abs()).all())
+
+
+def within64(got, ref, terms) -> bool:
+    """float64 sums in another order: within SUM64_RTOL of the summed
+    magnitudes ``terms``."""
+    return bool(((got - ref).abs() <= SUM64_RTOL * terms + 1e-12).all())
+
+
+def check_k3(g, flip, proj_u, proj_v, b3e, e_in, bn, what):
+    """K3 against its plain version at one flip, and a second launch bitwise
+    equal to the first; returns (kernel args, max |diff| of e_out, of all)."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    u, v, v_csr, u_csr = g.roles(flip)
+    args = (u, v, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn)
+    got = K.k3_edge_stage(*args)
+    ref = K.k3_edge_stage_plain(u, v, proj_u, proj_v, b3e, e_in, bn)
+    torch.cuda.synchronize()
+    diff = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    check(diff[0] <= EDGE_ATOL, f"K3 {what} flip={flip} e_out diff {diff[0]}")
+    for x, y in zip(got[1:], ref[1:]):
+        check(within_sums(x, y), f"K3 {what} flip={flip} node sums")
+    again = K.k3_edge_stage(*args)
+    check(all(torch.equal(p, q) for p, q in zip(got, again)),
+          f"K3 {what} flip={flip} bitwise reproducible")
+    return args, diff[0], max(diff)
+
+
+def check_k7(g, flip, bu, bv, b3e, what):
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    u, v, _, _ = g.roles(flip)
+    got = K.k7_gate_stats(u, v, bu, bv, b3e)
+    ref = K.k7_gate_stats_plain(u, v, bu, bv, b3e)
+    x = (bu[u.long()] + bv[v.long()] + b3e).double()
+    check(within64(got, ref, torch.cat([x.abs().sum(0), (x * x).sum(0)])),
+          f"K7 {what} flip={flip} sums within tolerance")
+    check(torch.equal(got, K.k7_gate_stats(u, v, bu, bv, b3e)),
+          f"K7 {what} flip={flip} bitwise reproducible")
+    return (float((got - ref).abs().max()),
+            float(((got - ref).abs() / ref.abs().clamp_min(1e-300)).max()))
+
+
+def check_k8(g, flip, args, what):
+    """K8 against its plain version (x exact, d_eo within EDGE_ATOL, node
+    sums, float64 sums) and bitwise reproducible; returns (max |diff| of
+    x, d_eo and the node sums, of d_eo)."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    u, v, v_csr, u_csr = g.roles(flip)
+    got = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
+    ref = K.k8_train_layer_bwd_plain(u, v, *args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ref[0]), f"K8 {what} flip={flip} x exact")
+    d_eo_diff = float((got[1] - ref[1]).abs().max())
+    check(d_eo_diff <= EDGE_ATOL,
+          f"K8 {what} flip={flip} d_eo diff {d_eo_diff}")
+    for a_, b_ in zip(got[2:4], ref[2:4]):
+        check(within_sums(a_, b_), f"K8 {what} flip={flip} node sums")
+    deo = ref[1].double().abs()
+    check(within64(got[4], ref[4], torch.cat(
+        [deo.sum(0), (deo * ref[0].double().abs()).sum(0)])),
+        f"K8 {what} flip={flip} global sums within tolerance")
+    again = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
+    check(all(torch.equal(p, q) for p, q in zip(got, again)),
+          f"K8 {what} flip={flip} bitwise reproducible")
+    return (max(float((p - q).abs().max()) for p, q in zip(got[:4], ref[:4])),
+            d_eo_diff)
+
+
+def check_sum_kernel(name, got, ref, again, what):
+    """K2 / K9: node sums against the plain version, bitwise reproducible;
+    returns the max |diff|."""
+    for a_, b_ in zip(got, ref):
+        check(within_sums(a_, b_), f"{name} {what} sums within tolerance")
+    check(all(__import__("torch").equal(p, q) for p, q in zip(got, again)),
+          f"{name} {what} bitwise reproducible")
+    return max(float((a_ - b_).abs().max()) for a_, b_ in zip(got, ref))
+
+
 def phase_kernels(seed: int, dev, per_forward: dict):
-    """Each kernel vs its plain version at the golden graph's shapes."""
+    """Each kernel vs its plain version at the golden graph's shapes, and
+    K2, K3, K7, K8, K9 at widths above 128 on the same graph."""
     import torch
 
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
@@ -272,35 +378,17 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
     proj = randn(N, 5 * d)                  # [B1|A2|B2|A3|A1], as the model
     proj_u, proj_v = proj[:, :2 * d], proj[:, 2 * d:4 * d]
     b3e, e_in = randn(E, d), randn(E, d)
-    bn = torch.stack([randn(d) * 0.3,
-                      torch.rand(d, device=dev, generator=gen) * 1.5 + 0.5,
-                      torch.rand(d, device=dev, generator=gen) + 0.5,
-                      randn(d) * 0.1])
+    bn = bn_rows(d, randn, rand)
     puv, be = randn(N, 2 * H), randn(E, H)
     f4, i4 = 4, 4
     out = {}
 
-    k3 = {"launches_per_forward": per_forward["k3_edge_stage"]}
-    for flip in (False, True):
-        u, v, v_csr, u_csr = g.roles(flip)
-        args = (u, v, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn)
-        got = K.k3_edge_stage(*args)
-        ref = K.k3_edge_stage_plain(u, v, proj_u, proj_v, b3e, e_in, bn)
-        torch.cuda.synchronize()
-        diff = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-        check(diff[0] <= EDGE_ATOL, f"K3 flip={flip} e_out diff {diff[0]}")
-        for x, y in zip(got[1:], ref[1:]):
-            ok = bool(((x - y).abs() <= SUM_ATOL + SUM_RTOL * y.abs()).all())
-            check(ok, f"K3 flip={flip} node sums within tolerance")
-        k3[f"flip={flip}"] = {
-            "max_abs_diff": max(diff),
-            "max_abs_diff_e_out": diff[0],
-            "kernel_ms": cuda_ms(lambda: K.k3_edge_stage(*args)),
-            "plain_ms": cuda_ms(lambda: K.k3_edge_stage_plain(
-                u, v, proj_u, proj_v, b3e, e_in, bn))}
     # least time: read proj_u/proj_v (used columns), b3e, e_in, bn, u/v
     # indices, both row-pointer arrays and one slot permutation; write
     # e_out and both [N, 2d] sums.  ~20 flops per (edge, feature) over the
@@ -309,7 +397,22 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     k3_bytes = (f4 * (2 * N * 2 * d + 3 * E * d + 4 * d + 2 * N * 2 * d)
                 + i4 * (3 * E + 2 * (N + 1)))
     k3_bound, k3_by = bound(k3_bytes, 20.0 * E * d)
+    # what the kernel moves: the bound's bytes, pass 2's re-read of e_out
+    # and the second partner array (one per CSR)
+    k3_moved = k3_bytes + f4 * E * d + i4 * E
+    k3 = {"launches_per_forward": per_forward["k3_edge_stage"]}
+    for flip in (False, True):
+        args, diff_e, diff = check_k3(g, flip, proj_u, proj_v, b3e, e_in, bn,
+                                      f"d={d}")
+        u, v = args[:2]
+        ms = cuda_ms(lambda: K.k3_edge_stage(*args))
+        k3[f"flip={flip}"] = {
+            "max_abs_diff": diff, "max_abs_diff_e_out": diff_e,
+            "kernel_ms": ms, "achieved_gbps": k3_moved / ms / 1e6,
+            "plain_ms": cuda_ms(lambda: K.k3_edge_stage_plain(
+                u, v, proj_u, proj_v, b3e, e_in, bn))}
     k3.update(bound_ms=k3_bound, bound_by=k3_by, bytes=k3_bytes,
+              moved_bytes=k3_moved, bitwise_reproducible=True,
               tolerance={"e_out_atol": EDGE_ATOL, "sums_atol": SUM_ATOL,
                          "sums_rtol": SUM_RTOL})
     out["k3_edge_stage"] = k3
@@ -339,24 +442,13 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     tu, tv = proj4[:, :2 * d], proj4[:, 2 * d:]
     d_e_out, d_sum_u, d_sum_v = randn(E, d), randn(N, 2 * d), randn(N, 2 * d)
 
-    def within64(got, ref, terms):
-        return bool(((got - ref).abs() <= SUM64_RTOL * terms + 1e-12).all())
-
     k7 = {}
+    bu, bv = tu[:, :d], tv[:, :d]
     for flip in (False, True):
         u, v, _, _ = g.roles(flip)
-        bu, bv = tu[:, :d], tv[:, :d]
-        got = K.k7_gate_stats(u, v, bu, bv, b3e)
-        ref = K.k7_gate_stats_plain(u, v, bu, bv, b3e)
-        x = (bu[u.long()] + bv[v.long()] + b3e).double()
-        ok = within64(got, ref, torch.cat([x.abs().sum(0), (x * x).sum(0)]))
-        check(ok, f"K7 flip={flip} sums within tolerance")
-        check(torch.equal(got, K.k7_gate_stats(u, v, bu, bv, b3e)),
-              f"K7 flip={flip} bitwise reproducible")
+        diff, rel = check_k7(g, flip, bu, bv, b3e, f"d={d}")
         k7[f"flip={flip}"] = {
-            "max_abs_diff": float((got - ref).abs().max()),
-            "max_rel_diff": float(((got - ref).abs()
-                                   / ref.abs().clamp_min(1e-300)).max()),
+            "max_abs_diff": diff, "max_rel_diff": rel,
             "kernel_ms": cuda_ms(lambda: K.k7_gate_stats(u, v, bu, bv, b3e)),
             "plain_ms": cuda_ms(lambda: K.k7_gate_stats_plain(u, v, bu, bv,
                                                               b3e))}
@@ -370,33 +462,16 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     out["k7_gate_stats"] = k7
 
     k8 = {}
+    k8_args = (d_sum_u, d_sum_v, tu, tv, b3e, e_in, d_e_out, bn)
     for flip in (False, True):
         u, v, v_csr, u_csr = g.roles(flip)
-        args = (d_sum_u, d_sum_v, tu, tv, b3e, e_in, d_e_out, bn)
-        got = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
-        ref = K.k8_train_layer_bwd_plain(u, v, *args)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], ref[0]), f"K8 flip={flip} x exact")
-        d_eo_diff = float((got[1] - ref[1]).abs().max())
-        check(d_eo_diff <= EDGE_ATOL, f"K8 flip={flip} d_eo diff {d_eo_diff}")
-        for a_, b_ in zip(got[2:4], ref[2:4]):
-            ok = bool(((a_ - b_).abs() <= SUM_ATOL + SUM_RTOL * b_.abs()).all())
-            check(ok, f"K8 flip={flip} node sums within tolerance")
-        deo = ref[1].double().abs()
-        ok = within64(got[4], ref[4], torch.cat(
-            [deo.sum(0), (deo * ref[0].double().abs()).sum(0)]))
-        check(ok, f"K8 flip={flip} global sums within tolerance")
-        again = K.k8_train_layer_bwd(u, v, v_csr, u_csr, *args)
-        check(all(torch.equal(p, q) for p, q in zip(got, again)),
-              f"K8 flip={flip} bitwise reproducible")
+        diff, d_eo_diff = check_k8(g, flip, k8_args, f"d={d}")
         k8[f"flip={flip}"] = {
-            "max_abs_diff": max(float((p - q).abs().max())
-                                for p, q in zip(got[:4], ref[:4])),
-            "max_abs_diff_d_eo": d_eo_diff,
+            "max_abs_diff": diff, "max_abs_diff_d_eo": d_eo_diff,
             "kernel_ms": cuda_ms(lambda: K.k8_train_layer_bwd(
-                u, v, v_csr, u_csr, *args)),
+                u, v, v_csr, u_csr, *k8_args)),
             "plain_ms": cuda_ms(lambda: K.k8_train_layer_bwd_plain(
-                u, v, *args))}
+                u, v, *k8_args))}
     # read d_sum_u/v, proj_u/v ([N, 2d] each), b3e, e_in, d_e_out, bn, u/v
     # indices, both row-pointer arrays and one slot permutation; write x,
     # d_eo, node_u/v ([N, 3d]) and [2d] f64.  Per (edge, feature) about 49
@@ -407,7 +482,14 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                       + 2 * N * 3 * d) + 8 * 2 * d
                 + i4 * (3 * E + 2 * (N + 1)))
     k8_bound, k8_by = bound(k8_bytes, 49.0 * E * d, 3.0 * E * d)
+    # what the kernel moves: the bound's bytes, pass 2's re-reads of x,
+    # d_eo and e_in, and the second partner array
+    k8_moved = k8_bytes + f4 * 3 * E * d + i4 * E
+    for flip in (False, True):
+        r = k8[f"flip={flip}"]
+        r["achieved_gbps"] = k8_moved / r["kernel_ms"] / 1e6
     k8.update(bound_ms=k8_bound, bound_by=k8_by, bytes=k8_bytes,
+              moved_bytes=k8_moved, bitwise_reproducible=True,
               tolerance={"x": "exact", "d_eo_atol": EDGE_ATOL,
                          "sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL,
                          "sum64_rtol_of_magnitudes": SUM64_RTOL})
@@ -417,15 +499,10 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     pay = torch.relu(randn(E, H))           # dz * (z > 0): about half zeros
     for flip in (False, True):
         u, v, v_csr, u_csr = g.roles(flip)
-        got = K.k9_aggregate(u, v, v_csr, u_csr, pay)
-        ref = K.k9_aggregate_plain(u, v, pay, N)
-        torch.cuda.synchronize()
-        for a_, b_ in zip(got, ref):
-            ok = bool(((a_ - b_).abs() <= SUM_ATOL + SUM_RTOL * b_.abs()).all())
-            check(ok, f"K9 flip={flip} sums within tolerance")
-        again = K.k9_aggregate(u, v, v_csr, u_csr, pay)
-        check(all(torch.equal(p, q) for p, q in zip(got, again)),
-              f"K9 flip={flip} bitwise reproducible")
+        diff = check_sum_kernel(
+            "K9", K.k9_aggregate(u, v, v_csr, u_csr, pay),
+            K.k9_aggregate_plain(u, v, pay, N),
+            K.k9_aggregate(u, v, v_csr, u_csr, pay), f"flip={flip}")
         # the one PyTorch call for the same sums: index_add_ over the
         # stacked index [u; v + N] and payload [pay; pay] (built outside
         # the timing); it adds with atomics, so its sums vary run to run
@@ -433,8 +510,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         pay2 = torch.cat([pay, pay])
         acc = torch.zeros(2 * N, H, device=dev)
         k9[f"flip={flip}"] = {
-            "max_abs_diff": max(float((a_ - b_).abs().max())
-                                for a_, b_ in zip(got, ref)),
+            "max_abs_diff": diff,
             "kernel_ms": cuda_ms(lambda: K.k9_aggregate(u, v, v_csr, u_csr,
                                                         pay)),
             "plain_ms": cuda_ms(lambda: K.k9_aggregate_plain(u, v, pay, N)),
@@ -485,21 +561,15 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         r = {}
         for flip in (False, True):
             u, v, v_csr, u_csr = g.roles(flip)
-            got = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
-            ref = K.k2_aggregate_plain(u, v, pay_u, pay_v, N)
-            torch.cuda.synchronize()
-            for a_, b_ in zip(got, ref):
-                ok = bool(((a_ - b_).abs() <= SUM_ATOL
-                           + SUM_RTOL * b_.abs()).all())
-                check(ok, f"K2 Dp={width} flip={flip} sums within tolerance")
-            again = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
-            check(all(torch.equal(p, q) for p, q in zip(got, again)),
-                  f"K2 Dp={width} flip={flip} bitwise reproducible")
+            diff = check_sum_kernel(
+                "K2", K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
+                K.k2_aggregate_plain(u, v, pay_u, pay_v, N),
+                K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
+                f"Dp={width} flip={flip}")
             # the one PyTorch call for the same sums, as for K9
             uv = torch.cat([u.long(), v.long() + N])
             r[f"flip={flip}"] = {
-                "max_abs_diff": max(float((a_ - b_).abs().max())
-                                    for a_, b_ in zip(got, ref)),
+                "max_abs_diff": diff,
                 "kernel_ms": cuda_ms(lambda: K.k2_aggregate(
                     u, v, v_csr, u_csr, pay_u, pay_v)),
                 "plain_ms": cuda_ms(lambda: K.k2_aggregate_plain(
@@ -516,6 +586,40 @@ def phase_kernels(seed: int, dev, per_forward: dict):
               library_call="torch.Tensor.index_add_ on [u; v+N], "
                            "[pay_u; pay_v]")
     out["k2_aggregate"] = k2
+
+    # ---- widths above 128: K3, K7, K8 at d = WIDE_D (K3 and K8 in two
+    # column chunks) and K2, K9 at WIDE_PAY, each against its plain version
+    # and bitwise reproducible, both flips; not timed
+    dw, wp = WIDE_D, WIDE_PAY
+    projw = randn(N, 5 * dw)
+    b3w, e_inw, d_e_outw = randn(E, dw), randn(E, dw), randn(E, dw)
+    bnw = bn_rows(dw, randn, rand)
+    d_suw, d_svw = randn(N, 2 * dw), randn(N, 2 * dw)
+    pay_u, pay_v = randn(E, wp), randn(E, wp)
+    wide = {"d": dw, "width": wp}
+    for flip in (False, True):
+        u, v, v_csr, u_csr = g.roles(flip)
+        pu, pv = projw[:, :2 * dw], projw[:, 2 * dw:4 * dw]
+        r = {}
+        _, _, r["k3_max_abs_diff"] = check_k3(g, flip, pu, pv, b3w, e_inw,
+                                              bnw, f"d={dw}")
+        r["k7_max_abs_diff"], _ = check_k7(g, flip, pu[:, :dw], pv[:, :dw],
+                                           b3w, f"d={dw}")
+        r["k8_max_abs_diff"], _ = check_k8(
+            g, flip, (d_suw, d_svw, pu, pv, b3w, e_inw, d_e_outw, bnw),
+            f"d={dw}")
+        r["k2_max_abs_diff"] = check_sum_kernel(
+            "K2", K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
+            K.k2_aggregate_plain(u, v, pay_u, pay_v, N),
+            K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
+            f"Dp={wp} flip={flip}")
+        r["k9_max_abs_diff"] = check_sum_kernel(
+            "K9", K.k9_aggregate(u, v, v_csr, u_csr, pay_u),
+            K.k9_aggregate_plain(u, v, pay_u, N),
+            K.k9_aggregate(u, v, v_csr, u_csr, pay_u), f"H={wp} flip={flip}")
+        wide[f"flip={flip}"] = r
+    wide["bitwise_reproducible"] = True
+    out["wide"] = wide
     emit("kernels", graph={"nodes": N, "edges": E}, d=d, H=H, seed=seed,
          **out)
     return out

@@ -17,7 +17,12 @@ namespace gn {
 namespace {   // internal linkage: every kernel source includes this
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxWidth = 128;             // d <= 32 * FPL, FPL <= 4
+// column-chunk width of the warp-per-row kernels (K7, csr_sum.cuh: 32 lanes
+// x FPL <= 4 features); wider rows take more chunks (blockIdx.y)
+constexpr int kMaxWidth = 128;
+
+// Column chunks of width cw that cover d features.
+inline int col_chunks(int d, int cw) { return (d + cw - 1) / cw; }
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
     return 1.0f / (1.0f + expf(-x));
@@ -35,22 +40,30 @@ __device__ __forceinline__ float bn_apply(float x, float mu, float rs,
     return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rs), ga), be);
 }
 
-// Fixed-order block reduction of per-warp float64 rows: red[w][j] for
-// j < width, summed over the block's warps in warp order, written to
-// partials[blockIdx.x * width + j].  Call from every thread of the block.
-__device__ __forceinline__ void block_partials(
-        double (*red)[2 * kMaxWidth], int width, double* partials) {
+// Fixed-order block reduction of float64 rows for the [sum_a | sum_b] ([2d])
+// global sums: red holds `rows` rows (one per warp or team) of 2 * cw
+// values, [sum_a | sum_b] over the block's column chunk, features c0 ..
+// c0 + cw - 1.  The rows are added in row order and written to
+// partials[blockIdx.x * 2d + half * d + c0 + j] for c0 + j < d.  Call from
+// every thread of the block.
+__device__ __forceinline__ void block_partials(const double* red, int rows,
+                                               int cw, int c0, int d,
+                                               double* partials) {
     __syncthreads();
-    for (int j = threadIdx.x; j < width; j += blockDim.x) {
+    for (int j = threadIdx.x; j < 2 * cw; j += blockDim.x) {
+        const int half = j >= cw ? 1 : 0;
+        const int f = c0 + j - half * cw;
+        if (f >= d) continue;
         double acc = 0.0;
-        for (int w = 0; w < kWarpsPerBlock; ++w) acc += red[w][j];
-        partials[(int64_t)blockIdx.x * width + j] = acc;
+        for (int r = 0; r < rows; ++r) acc += red[r * 2 * cw + j];
+        partials[(int64_t)blockIdx.x * 2 * d + half * d + f] = acc;
     }
 }
 
 // out[j] = sum over b of partials[b * width + j], in a fixed order: a block
-// of 8 x 32 threads per 32 columns; row r adds b = r, r + 8, ... in order,
-// then the 8 row sums are added in row order.
+// of 8 x 32 threads per 32 columns; row r adds b = r, r + 8, ... in order
+// (unrolled, so eight loads are in flight; the adds keep their order), then
+// the 8 row sums are added in row order.
 __global__ void __launch_bounds__(256)
 reduce_partials(int n_parts, int width, const double* __restrict__ partials,
                 double* __restrict__ out) {
@@ -58,8 +71,11 @@ reduce_partials(int n_parts, int width, const double* __restrict__ partials,
     const int c = threadIdx.x & 31, r = threadIdx.x >> 5;
     const int j = blockIdx.x * 32 + c;
     double acc = 0.0;
-    if (j < width)
-        for (int b = r; b < n_parts; b += 8) acc += partials[(int64_t)b * width + j];
+    if (j < width) {
+#pragma unroll 8
+        for (int b = r; b < n_parts; b += 8)
+            acc += partials[(int64_t)b * width + j];
+    }
     red[r][c] = acc;
     __syncthreads();
     if (r == 0 && j < width) {

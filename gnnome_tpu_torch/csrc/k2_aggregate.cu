@@ -10,7 +10,7 @@
 // It carries the gated mean of the layer- and norm-free SymGatedGCN
 // (payloads [sigma * A2h[u] | sigma] and [sigma * A3h[v] | sigma], Dp = 2d),
 // the adjoint of K1 (Dp = 2d) and the adjoint of the predictor's endpoint
-// gathers (Dp = d).  Dp <= 128.
+// gathers (Dp = d).  Any Dp: rows wider than 128 take several column chunks.
 //
 // Bound on the card: bytes.  It must read both payloads once (2 x Dp floats
 // per edge) and write the two [N, Dp] sums; one add per element.

@@ -28,168 +28,196 @@
 // into per-block window partials because the MXU has no row gather; here a
 // row gather is a plain load, and the reductions run over sorted segments
 // instead, so no atomics and bitwise-reproducible sums:
-//   pass 1: one warp per v node walks that node's edge slots in slot order
-//           (the v-side CSR), lanes striding the d features: it computes the
-//           whole edge stage, writes e_out once, keeps B2h[v] and the
-//           [sigma*A2h[u] | sigma] accumulators in registers and writes
-//           sum_v[v] once;
-//   pass 2: one warp per u node walks the u-side CSR (slots stably sorted,
-//           so again in slot order), recomputes sigma from e_out and writes
+//   pass 1: a team of lanes per v node walks that node's edge slots in slot
+//           order (the v-side CSR): it computes the whole edge stage, writes
+//           e_out once, keeps B2h[v] and the [sigma*A2h[u] | sigma]
+//           accumulators in registers and writes sum_v[v] once;
+//   pass 2: a team per u node walks the u-side CSR (slots stably sorted, so
+//           again in slot order), recomputes sigma from e_out and writes
 //           sum_u[u] once.
-// Nodes with no edges write zeros.  flip=False: v = dst, whose slot list is
-// the identity (slots are dst-sorted), so v_perm is null; flip=True swaps
-// the two CSRs.  Arithmetic uses explicit round-to-nearest intrinsics so the
-// compiler does not contract into FMAs: results match the plain PyTorch
-// version's per-op rounding (csrc/edge_math.cuh, shared with K7 and K8).
+// The first port gave each node a warp that walked its slots one at a time,
+// each waiting on a chain of loads (slot number, partner index, rows), so
+// it was latency-bound at 20-40% of the card's memory rate.  Now both
+// passes run the walk of csrc/csr_walk.cuh: teams of 8, 16 or 32 lanes
+// with a 16-byte vector of features each (two nodes per warp at d = 64),
+// slot numbers and partner indices loaded in chunks and shuffled to the
+// team, each slot's rows (pass 1: B1h[u], A2h[u], b3e, e_in; pass 2:
+// e_out, A3h[v]) copied with cp.async through a shared-memory ring two
+// slots ahead of their use.  Each node still adds its slots in slot order,
+// so the sums are what the first port computed.
+// Column chunks (blockIdx.y) take any d; widths not divisible by 4 or rows
+// not 16-byte aligned run the same code one float per lane.  Nodes with no
+// edges write zeros.  flip=False: v = dst, whose slot list is the identity
+// (slots are dst-sorted), so v_perm is null; flip=True swaps the two CSRs.
+// Arithmetic uses explicit round-to-nearest intrinsics so the compiler does
+// not contract into FMAs: results match the plain PyTorch version's per-op
+// rounding (csrc/edge_math.cuh, shared with K7 and K8).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr_walk.cuh"
 #include "edge_math.cuh"
 
 namespace {
 
-using gn::kWarpsPerBlock;
+using gn::kTeamThreads;
+using gn::Team;
+using gn::Vec;
+using gn::vld;
+using gn::vst;
+using gn::vzero;
 using gn::sigmoid_f32;
 
-// FPL = features per lane: handles any d <= 32 * FPL.
-template <int FPL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+constexpr int kRowsV = 4, kRowsU = 2;     // rows a slot copies, per pass
+
+template <int T, int V>
+__global__ void __launch_bounds__(kTeamThreads)
 k3_pass_v(int n_nodes, int d, const int* __restrict__ v_ptr,
-          const int* __restrict__ v_perm, const int* __restrict__ u_idx,
+          const int* __restrict__ v_perm, const int* __restrict__ v_nbr,
           const float* __restrict__ proj_u, int64_t ldu,
           const float* __restrict__ proj_v, int64_t ldv,
           const float* __restrict__ b3e, const float* __restrict__ e_in,
           const float* __restrict__ bn, float* __restrict__ e_out,
           float* __restrict__ sum_v) {
-    const int v = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const gn::Ring<V, kRowsV> ring(smem);
+    const Team<T> tm;
+    const int f = blockIdx.y * (T * V) + tm.lane * V;
+    const bool on = f < d;
+    Vec<V> mu = vzero<V>(), rs = vzero<V>(), ga = vzero<V>(),
+           be = vzero<V>();
+    if (on) {
+        mu = vld<V>(bn + f);
+        rs = vld<V>(bn + d + f);
+        ga = vld<V>(bn + 2 * d + f);
+        be = vld<V>(bn + 3 * d + f);
+    }
+    const int v = tm.node;
     if (v >= n_nodes) return;
-    float b2[FPL], mu[FPL], rs[FPL], ga[FPL], be[FPL], acc_m[FPL], acc_s[FPL];
-    const float* pv = proj_v + (int64_t)v * ldv;
+    Vec<V> b2 = vzero<V>(), acc_m = vzero<V>(), acc_s = vzero<V>();
+    if (on) b2 = vld<V>(proj_v + (int64_t)v * ldv + f);
+    gn::walk_slots<T, gn::kStages>(
+        tm, v_ptr[v], v_ptr[v + 1], v_perm, v_nbr,
+        [&](int st, int s, int u) {
+            if (!on) return;
+            const float* pu = proj_u + (int64_t)u * ldu + f;
+            const int64_t row = (int64_t)s * d + f;
+            ring.fetch(st, 0, pu);
+            ring.fetch(st, 1, pu + d);
+            ring.fetch(st, 2, b3e + row);
+            ring.fetch(st, 3, e_in + row);
+        },
+        [&](int st, int s) {
+            if (!on) return;
+            const Vec<V> b1 = ring.read(st, 0), a2 = ring.read(st, 1),
+                         b3 = ring.read(st, 2), ei = ring.read(st, 3);
+            Vec<V> eo;
 #pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        const bool on = f < d;
-        b2[k] = on ? pv[f] : 0.0f;
-        mu[k] = on ? bn[f] : 0.0f;
-        rs[k] = on ? bn[d + f] : 0.0f;
-        ga[k] = on ? bn[2 * d + f] : 0.0f;
-        be[k] = on ? bn[3 * d + f] : 0.0f;
-        acc_m[k] = 0.0f;
-        acc_s[k] = 0.0f;
-    }
-    const int beg = v_ptr[v], end = v_ptr[v + 1];
-    for (int i = beg; i < end; ++i) {
-        const int s = v_perm ? v_perm[i] : i;
-        const float* pu = proj_u + (int64_t)u_idx[s] * ldu;
-        const int64_t row = (int64_t)s * d;
-#pragma unroll
-        for (int k = 0; k < FPL; ++k) {
-            const int f = lane + 32 * k;
-            if (f < d) {
-                const float x = gn::gate_x(pu[f], b2[k], b3e[row + f]);
-                const float y = gn::bn_apply(x, mu[k], rs[k], ga[k], be[k]);
-                const float eo = __fadd_rn(fmaxf(y, 0.0f), e_in[row + f]);
-                e_out[row + f] = eo;
-                const float sg = sigmoid_f32(eo);
-                acc_m[k] = __fadd_rn(acc_m[k], __fmul_rn(sg, pu[d + f]));
-                acc_s[k] = __fadd_rn(acc_s[k], sg);
+            for (int i = 0; i < V; ++i) {
+                const float x = gn::gate_x(b1.a[i], b2.a[i], b3.a[i]);
+                const float y = gn::bn_apply(x, mu.a[i], rs.a[i],
+                                             ga.a[i], be.a[i]);
+                eo.a[i] = __fadd_rn(fmaxf(y, 0.0f), ei.a[i]);
+                const float sg = sigmoid_f32(eo.a[i]);
+                acc_m.a[i] = __fadd_rn(acc_m.a[i], __fmul_rn(sg, a2.a[i]));
+                acc_s.a[i] = __fadd_rn(acc_s.a[i], sg);
             }
-        }
-    }
-    float* out = sum_v + (int64_t)v * 2 * d;
-#pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        if (f < d) {
-            out[f] = acc_m[k];
-            out[d + f] = acc_s[k];
-        }
+            vst<V>(e_out + (int64_t)s * d + f, eo);
+        });
+    if (on) {
+        float* out = sum_v + (int64_t)v * 2 * d + f;
+        vst<V>(out, acc_m);
+        vst<V>(out + d, acc_s);
     }
 }
 
-template <int FPL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+template <int T, int V>
+__global__ void __launch_bounds__(kTeamThreads)
 k3_pass_u(int n_nodes, int d, const int* __restrict__ u_ptr,
-          const int* __restrict__ u_perm, const int* __restrict__ v_idx,
+          const int* __restrict__ u_perm, const int* __restrict__ u_nbr,
           const float* __restrict__ proj_v, int64_t ldv,
           const float* __restrict__ e_out, float* __restrict__ sum_u) {
-    const int u = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const gn::Ring<V, kRowsU> ring(smem);
+    const Team<T> tm;
+    const int f = blockIdx.y * (T * V) + tm.lane * V;
+    const bool on = f < d;
+    const int u = tm.node;
     if (u >= n_nodes) return;
-    float acc_m[FPL], acc_s[FPL];
+    Vec<V> acc_m = vzero<V>(), acc_s = vzero<V>();
+    gn::walk_slots<T, gn::kStages>(
+        tm, u_ptr[u], u_ptr[u + 1], u_perm, u_nbr,
+        [&](int st, int s, int v) {
+            if (!on) return;
+            ring.fetch(st, 0, e_out + (int64_t)s * d + f);
+            ring.fetch(st, 1, proj_v + (int64_t)v * ldv + d + f);
+        },
+        [&](int st, int) {
+            if (!on) return;
+            const Vec<V> eo = ring.read(st, 0), a3 = ring.read(st, 1);
 #pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        acc_m[k] = 0.0f;
-        acc_s[k] = 0.0f;
-    }
-    const int beg = u_ptr[u], end = u_ptr[u + 1];
-    for (int i = beg; i < end; ++i) {
-        const int s = u_perm ? u_perm[i] : i;
-        const float* pv = proj_v + (int64_t)v_idx[s] * ldv;
-        const int64_t row = (int64_t)s * d;
-#pragma unroll
-        for (int k = 0; k < FPL; ++k) {
-            const int f = lane + 32 * k;
-            if (f < d) {
-                const float sg = sigmoid_f32(e_out[row + f]);
-                acc_m[k] = __fadd_rn(acc_m[k], __fmul_rn(sg, pv[d + f]));
-                acc_s[k] = __fadd_rn(acc_s[k], sg);
+            for (int i = 0; i < V; ++i) {
+                const float sg = sigmoid_f32(eo.a[i]);
+                acc_m.a[i] = __fadd_rn(acc_m.a[i], __fmul_rn(sg, a3.a[i]));
+                acc_s.a[i] = __fadd_rn(acc_s.a[i], sg);
             }
-        }
-    }
-    float* out = sum_u + (int64_t)u * 2 * d;
-#pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        if (f < d) {
-            out[f] = acc_m[k];
-            out[d + f] = acc_s[k];
-        }
+        });
+    if (on) {
+        float* out = sum_u + (int64_t)u * 2 * d + f;
+        vst<V>(out, acc_m);
+        vst<V>(out + d, acc_s);
     }
 }
 
-template <int FPL>
-void launch(int n_nodes, int d, const int* v_ptr, const int* v_perm,
-            const int* u_ptr, const int* u_perm, const int* u_idx,
-            const int* v_idx, const float* proj_u, int64_t ldu,
-            const float* proj_v, int64_t ldv, const float* b3e,
-            const float* e_in, const float* bn, float* e_out, float* sum_v,
-            float* sum_u, cudaStream_t st) {
-    const dim3 block(32 * kWarpsPerBlock);
-    const dim3 grid((n_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    k3_pass_v<FPL><<<grid, block, 0, st>>>(
-        n_nodes, d, v_ptr, v_perm, u_idx, proj_u, ldu, proj_v, ldv, b3e,
+template <int T, int V>
+int launch(int n_nodes, int d, const int* v_ptr, const int* v_perm,
+           const int* v_nbr, const int* u_ptr, const int* u_perm,
+           const int* u_nbr, const float* proj_u, int64_t ldu,
+           const float* proj_v, int64_t ldv, const float* b3e,
+           const float* e_in, const float* bn, float* e_out, float* sum_v,
+           float* sum_u, cudaStream_t st) {
+    // at most 48 KB: no opt-in needed
+    constexpr int smem_v = gn::Ring<V, kRowsV>::bytes(gn::kStages);
+    constexpr int smem_u = gn::Ring<V, kRowsU>::bytes(gn::kStages);
+    static_assert(smem_v <= 48 * 1024 && smem_u <= 48 * 1024, "K3 ring");
+    constexpr int teams = kTeamThreads / T;     // one node per team
+    const dim3 grid((n_nodes + teams - 1) / teams, gn::col_chunks(d, T * V));
+    const dim3 block(kTeamThreads);
+    k3_pass_v<T, V><<<grid, block, smem_v, st>>>(
+        n_nodes, d, v_ptr, v_perm, v_nbr, proj_u, ldu, proj_v, ldv, b3e,
         e_in, bn, e_out, sum_v);
-    k3_pass_u<FPL><<<grid, block, 0, st>>>(
-        n_nodes, d, u_ptr, u_perm, v_idx, proj_v, ldv, e_out, sum_u);
+    k3_pass_u<T, V><<<grid, block, smem_u, st>>>(
+        n_nodes, d, u_ptr, u_perm, u_nbr, proj_v, ldv, e_out, sum_u);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int gn_k3_edge_stage(
     int n_nodes, int d, const int* v_ptr, const int* v_perm,
-    const int* u_ptr, const int* u_perm, const int* u_idx, const int* v_idx,
+    const int* v_nbr, const int* u_ptr, const int* u_perm, const int* u_nbr,
     const float* proj_u, int64_t ldu, const float* proj_v, int64_t ldv,
     const float* b3e, const float* e_in, const float* bn, float* e_out,
     float* sum_v, float* sum_u, void* stream) {
-    if (n_nodes <= 0) return (int)cudaSuccess;
+    if (n_nodes <= 0 || d <= 0) return (int)cudaSuccess;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d <= 32)
-        launch<1>(n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx,
-                  proj_u, ldu, proj_v, ldv, b3e, e_in, bn, e_out, sum_v,
-                  sum_u, st);
-    else if (d <= 64)
-        launch<2>(n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx,
-                  proj_u, ldu, proj_v, ldv, b3e, e_in, bn, e_out, sum_v,
-                  sum_u, st);
-    else if (d <= 128)
-        launch<4>(n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx,
-                  proj_u, ldu, proj_v, ldv, b3e, e_in, bn, e_out, sum_v,
-                  sum_u, st);
-    else
-        return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+    const bool vec = d % 4 == 0
+                     && gn::rows_16b({proj_u, proj_v, b3e, e_in, bn, e_out,
+                                      sum_v, sum_u}, {ldu, ldv});
+#define GN_K3_LAUNCH(T, V)                                                     \
+    return launch<T, V>(n_nodes, d, v_ptr, v_perm, v_nbr, u_ptr, u_perm,      \
+                        u_nbr, proj_u, ldu, proj_v, ldv, b3e, e_in, bn,       \
+                        e_out, sum_v, sum_u, st)
+    const int t = gn::team_size(d, vec ? 4 : 1);
+    if (vec) {
+        if (t == 8) GN_K3_LAUNCH(8, 4);
+        if (t == 16) GN_K3_LAUNCH(16, 4);
+        GN_K3_LAUNCH(32, 4);
+    }
+    if (t == 8) GN_K3_LAUNCH(8, 1);
+    if (t == 16) GN_K3_LAUNCH(16, 1);
+    GN_K3_LAUNCH(32, 1);
+#undef GN_K3_LAUNCH
 }
 
 extern "C" const char* gn_cuda_error_string(int code) {

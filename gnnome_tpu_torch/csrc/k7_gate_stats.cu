@@ -21,7 +21,8 @@
 // cancelling where |mean| >> std.  Warps add into a per-block row in warp
 // order, and a second launch adds the block rows in a fixed order: the
 // result is bitwise reproducible, with no atomics.  The partition into warps
-// depends on E only.
+// depends on E only.  Rows wider than 128 features take several column
+// chunks (blockIdx.y), each with its own shared-memory rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,9 +48,11 @@ k7_partials(int64_t n_edges, int d, int64_t chunk,
             const float* __restrict__ bu, int64_t ldu,
             const float* __restrict__ bv, int64_t ldv,
             const float* __restrict__ b3e, double* __restrict__ partials) {
-    __shared__ double red[kWarpsPerBlock][2 * gn::kMaxWidth];
+    constexpr int CW = 32 * FPL;          // column chunk: blockIdx.y
+    __shared__ double red[kWarpsPerBlock * 2 * CW];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
+    const int c0 = blockIdx.y * CW;
     const int64_t beg = ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * chunk;
     const int64_t end = beg + chunk < n_edges ? beg + chunk : n_edges;
     double s1[FPL], s2[FPL];
@@ -64,7 +67,7 @@ k7_partials(int64_t n_edges, int d, int64_t chunk,
         const float* pb = b3e + s * d;
 #pragma unroll
         for (int k = 0; k < FPL; ++k) {
-            const int f = lane + 32 * k;
+            const int f = c0 + lane + 32 * k;
             if (f < d) {
                 const float x = gn::gate_x(pu[f], pv[f], pb[f]);
                 s1[k] += (double)x;
@@ -74,13 +77,10 @@ k7_partials(int64_t n_edges, int d, int64_t chunk,
     }
 #pragma unroll
     for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        if (f < d) {
-            red[warp][f] = s1[k];
-            red[warp][d + f] = s2[k];
-        }
+        red[warp * 2 * CW + lane + 32 * k] = s1[k];
+        red[warp * 2 * CW + CW + lane + 32 * k] = s2[k];
     }
-    gn::block_partials(red, 2 * d, partials);
+    gn::block_partials(red, kWarpsPerBlock, CW, c0, d, partials);
 }
 
 template <int FPL>
@@ -88,12 +88,13 @@ int launch(int64_t n_edges, int d, const int* u_idx, const int* v_idx,
            const float* bu, int64_t ldu, const float* bv, int64_t ldv,
            const float* b3e, double* partials, double* out,
            cudaStream_t st) {
-    const int grid = num_blocks(n_edges);
-    const int64_t all = (int64_t)grid * kWarpsPerBlock;
+    const int blocks = num_blocks(n_edges);
+    const int64_t all = (int64_t)blocks * kWarpsPerBlock;
     const int64_t chunk = (n_edges + all - 1) / all;
+    const dim3 grid(blocks, gn::col_chunks(d, 32 * FPL));
     k7_partials<FPL><<<grid, 32 * kWarpsPerBlock, 0, st>>>(
         n_edges, d, chunk, u_idx, v_idx, bu, ldu, bv, ldv, b3e, partials);
-    gn::launch_reduce_partials(grid, 2 * d, partials, out, st);
+    gn::launch_reduce_partials(blocks, 2 * d, partials, out, st);
     return (int)cudaGetLastError();
 }
 
@@ -117,8 +118,6 @@ extern "C" int gn_k7_gate_stats(int64_t n_edges, int d, const int* u_idx,
     if (d <= 64)
         return launch<2>(n_edges, d, u_idx, v_idx, bu, ldu, bv, ldv, b3e,
                          partials, out, st);
-    if (d <= 128)
-        return launch<4>(n_edges, d, u_idx, v_idx, bu, ldu, bv, ldv, b3e,
-                         partials, out, st);
-    return (int)cudaErrorInvalidValue;
+    return launch<4>(n_edges, d, u_idx, v_idx, bu, ldu, bv, ldv, b3e,
+                     partials, out, st);
 }

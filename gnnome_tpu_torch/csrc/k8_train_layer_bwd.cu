@@ -28,28 +28,47 @@
 // Design.  The TPU kernel scattered into per-block window partials with
 // one-hot matmuls.  Here, as in K3, the node sums walk the two sorted-segment
 // CSRs, so there are no atomics and the results are bitwise reproducible:
-//   pass 1: one warp per v node walks its slots (v-side CSR), recomputes the
-//           forward, writes x and d_eo once, keeps [d_y*scale | sigma*du_m |
-//           x] for the node in registers, and adds d_y and d_y * x into
-//           float64 registers for the global sums (per-block rows, added in
-//           a fixed order by a last launch);
-//   pass 2: one warp per u node walks its slots (u-side CSR), reads x and
-//           d_eo back, recomputes y and sigma from them and writes node_u.
-// Lanes stride the d features, so every row access is coalesced.
+//   pass 1: a team of lanes per v node walks its slots (v-side CSR),
+//           recomputes the forward, writes x and d_eo once, keeps [d_y*scale
+//           | sigma*du_m | x] for the node in registers, and adds d_y and
+//           d_y * x into float64 registers for the global sums (one row per
+//           team, added in team order into one row per block, and the block
+//           rows in a fixed order by a last launch: an order set by N and
+//           the team size alone);
+//   pass 2: a team per u node walks its slots (u-side CSR), reads x, d_eo
+//           and e_in back, recomputes y and sigma from them and writes
+//           node_u.
+// The walk is K3's (csrc/csr_walk.cuh): teams of 8, 16 or 32 lanes with a
+// 16-byte vector of features each (two nodes per warp at d = 64), slot and
+// partner indices loaded in chunks and shuffled to the team, each slot's
+// rows (pass 1: B1h[u], A2h[u], d_sum_u[u] and the b3e, e_in, d_e_out rows;
+// pass 2: x, d_eo, e_in and d_sum_v[v]) copied with cp.async through a
+// shared-memory ring two slots ahead of their use, column chunks
+// (blockIdx.y) for any d, one float per lane for widths not divisible by 4.
+// Each node adds its slots in slot order, as the first port did; the
+// float64 global sums add in another fixed order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr_walk.cuh"
 #include "edge_math.cuh"
 
 namespace {
 
-using gn::kWarpsPerBlock;
+using gn::kTeamThreads;
+using gn::Team;
+using gn::Vec;
+using gn::vld;
+using gn::vst;
+using gn::vzero;
 using gn::sigmoid_f32;
 
-template <int FPL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+constexpr int kRowsV = 7, kRowsU = 4;     // rows a slot copies, per pass
+
+template <int T, int V>
+__global__ void __launch_bounds__(kTeamThreads)
 k8_pass_v(int n_nodes, int d, const int* __restrict__ v_ptr,
-          const int* __restrict__ v_perm, const int* __restrict__ u_idx,
+          const int* __restrict__ v_perm, const int* __restrict__ v_nbr,
           const float* __restrict__ proj_u, int64_t ldu,
           const float* __restrict__ proj_v, int64_t ldv,
           const float* __restrict__ d_sum_u, const float* __restrict__ d_sum_v,
@@ -57,200 +76,239 @@ k8_pass_v(int n_nodes, int d, const int* __restrict__ v_ptr,
           const float* __restrict__ d_e_out, const float* __restrict__ bn,
           float* __restrict__ x_out, float* __restrict__ deo_out,
           float* __restrict__ node_v, double* __restrict__ partials) {
-    __shared__ double red[kWarpsPerBlock][2 * gn::kMaxWidth];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int v = blockIdx.x * kWarpsPerBlock + warp;
-    double st_dy[FPL], st_dyx[FPL];
-#pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        st_dy[k] = 0.0;
-        st_dyx[k] = 0.0;
+    constexpr int W = T * V;
+    __shared__ double red[(kTeamThreads / T) * 2 * W];
+    extern __shared__ __align__(16) unsigned char smem[];
+    const gn::Ring<V, kRowsV> ring(smem);
+    const Team<T> tm;
+    const int c0 = blockIdx.y * W;
+    const int f = c0 + tm.lane * V;
+    const bool on = f < d;
+    Vec<V> mu = vzero<V>(), rs = vzero<V>(), ga = vzero<V>(),
+           be = vzero<V>();
+    if (on) {
+        mu = vld<V>(bn + f);
+        rs = vld<V>(bn + d + f);
+        ga = vld<V>(bn + 2 * d + f);
+        be = vld<V>(bn + 3 * d + f);
     }
-    if (v < n_nodes) {
-        float b2[FPL], a3[FPL], dvm[FPL], dvs[FPL], mu[FPL], rs[FPL], ga[FPL],
-            be[FPL], sc[FPL], acc_dy[FPL], acc_sg[FPL], acc_x[FPL];
-        const float* pv = proj_v + (int64_t)v * ldv;
-        const float* dv = d_sum_v + (int64_t)v * 2 * d;
+    double st_dy[V], st_dyx[V];
 #pragma unroll
-        for (int k = 0; k < FPL; ++k) {
-            const int f = lane + 32 * k;
-            const bool on = f < d;
-            b2[k] = on ? pv[f] : 0.0f;
-            a3[k] = on ? pv[d + f] : 0.0f;
-            dvm[k] = on ? dv[f] : 0.0f;
-            dvs[k] = on ? dv[d + f] : 0.0f;
-            mu[k] = on ? bn[f] : 0.0f;
-            rs[k] = on ? bn[d + f] : 0.0f;
-            ga[k] = on ? bn[2 * d + f] : 0.0f;
-            be[k] = on ? bn[3 * d + f] : 0.0f;
-            sc[k] = __fmul_rn(ga[k], rs[k]);
-            acc_dy[k] = 0.0f;
-            acc_sg[k] = 0.0f;
-            acc_x[k] = 0.0f;
+    for (int i = 0; i < V; ++i) {
+        st_dy[i] = 0.0;
+        st_dyx[i] = 0.0;
+    }
+    const int v = tm.node;
+    if (v < n_nodes) {      // no return: every thread joins block_partials
+        Vec<V> b2 = vzero<V>(), a3 = vzero<V>(), dvm = vzero<V>(),
+               dvs = vzero<V>();
+        if (on) {
+            const float* pv = proj_v + (int64_t)v * ldv + f;
+            const float* dv = d_sum_v + (int64_t)v * 2 * d + f;
+            b2 = vld<V>(pv);
+            a3 = vld<V>(pv + d);
+            dvm = vld<V>(dv);
+            dvs = vld<V>(dv + d);
         }
-        const int beg = v_ptr[v], end = v_ptr[v + 1];
-        for (int i = beg; i < end; ++i) {
-            const int s = v_perm ? v_perm[i] : i;
-            const int u = u_idx[s];
-            const float* pu = proj_u + (int64_t)u * ldu;
-            const float* du = d_sum_u + (int64_t)u * 2 * d;
-            const int64_t row = (int64_t)s * d;
+        Vec<V> acc_dy = vzero<V>(), acc_sg = vzero<V>(), acc_x = vzero<V>();
+        gn::walk_slots<T, gn::kStages>(
+            tm, v_ptr[v], v_ptr[v + 1], v_perm, v_nbr,
+            [&](int st, int s, int u) {
+                if (!on) return;
+                const float* pu = proj_u + (int64_t)u * ldu + f;
+                const float* du = d_sum_u + (int64_t)u * 2 * d + f;
+                const int64_t row = (int64_t)s * d + f;
+                ring.fetch(st, 0, pu);
+                ring.fetch(st, 1, pu + d);
+                ring.fetch(st, 2, du);
+                ring.fetch(st, 3, du + d);
+                ring.fetch(st, 4, b3e + row);
+                ring.fetch(st, 5, e_in + row);
+                ring.fetch(st, 6, d_e_out + row);
+            },
+            [&](int st, int s) {
+                if (!on) return;
+                const Vec<V> b1 = ring.read(st, 0), a2 = ring.read(st, 1),
+                             dum = ring.read(st, 2), dus = ring.read(st, 3),
+                             b3 = ring.read(st, 4), ei = ring.read(st, 5),
+                             dout = ring.read(st, 6);
+                Vec<V> xo, dd;
 #pragma unroll
-            for (int k = 0; k < FPL; ++k) {
-                const int f = lane + 32 * k;
-                if (f < d) {
-                    const float x = gn::gate_x(pu[f], b2[k], b3e[row + f]);
-                    const float y = gn::bn_apply(x, mu[k], rs[k], ga[k], be[k]);
-                    const float eo = __fadd_rn(fmaxf(y, 0.0f), e_in[row + f]);
+                for (int i = 0; i < V; ++i) {
+                    const float x = gn::gate_x(b1.a[i], b2.a[i], b3.a[i]);
+                    const float y = gn::bn_apply(x, mu.a[i], rs.a[i], ga.a[i],
+                                                 be.a[i]);
+                    const float eo = __fadd_rn(fmaxf(y, 0.0f), ei.a[i]);
                     const float sg = sigmoid_f32(eo);
-                    const float dum = du[f];
                     const float dsig = __fadd_rn(
-                        __fadd_rn(__fadd_rn(__fmul_rn(dvm[k], pu[d + f]), dvs[k]),
-                                  __fmul_rn(dum, a3[k])),
-                        du[d + f]);
+                        __fadd_rn(__fadd_rn(__fmul_rn(dvm.a[i], a2.a[i]),
+                                            dvs.a[i]),
+                                  __fmul_rn(dum.a[i], a3.a[i])),
+                        dus.a[i]);
                     const float deo = __fadd_rn(
-                        d_e_out[row + f],
+                        dout.a[i],
                         __fmul_rn(__fmul_rn(dsig, sg), __fsub_rn(1.0f, sg)));
                     const float dy = y > 0.0f ? deo : 0.0f;
-                    x_out[row + f] = x;
-                    deo_out[row + f] = deo;
-                    acc_dy[k] = __fadd_rn(acc_dy[k], __fmul_rn(dy, sc[k]));
-                    acc_sg[k] = __fadd_rn(acc_sg[k], __fmul_rn(sg, dum));
-                    acc_x[k] = __fadd_rn(acc_x[k], x);
-                    st_dy[k] += (double)dy;
-                    st_dyx[k] += (double)dy * (double)x;
+                    xo.a[i] = x;
+                    dd.a[i] = deo;
+                    acc_dy.a[i] = __fadd_rn(
+                        acc_dy.a[i],
+                        __fmul_rn(dy, __fmul_rn(ga.a[i], rs.a[i])));
+                    acc_sg.a[i] = __fadd_rn(acc_sg.a[i],
+                                            __fmul_rn(sg, dum.a[i]));
+                    acc_x.a[i] = __fadd_rn(acc_x.a[i], x);
+                    st_dy[i] += (double)dy;
+                    st_dyx[i] += (double)dy * (double)x;
                 }
-            }
-        }
-        float* out = node_v + (int64_t)v * 3 * d;
-#pragma unroll
-        for (int k = 0; k < FPL; ++k) {
-            const int f = lane + 32 * k;
-            if (f < d) {
-                out[f] = acc_dy[k];
-                out[d + f] = acc_sg[k];
-                out[2 * d + f] = acc_x[k];
-            }
+                const int64_t row = (int64_t)s * d + f;
+                vst<V>(x_out + row, xo);
+                vst<V>(deo_out + row, dd);
+            });
+        if (on) {
+            float* out = node_v + (int64_t)v * 3 * d + f;
+            vst<V>(out, acc_dy);
+            vst<V>(out + d, acc_sg);
+            vst<V>(out + 2 * d, acc_x);
         }
     }
+    const int team = threadIdx.x / T;
 #pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        if (f < d) {
-            red[warp][f] = st_dy[k];
-            red[warp][d + f] = st_dyx[k];
-        }
+    for (int i = 0; i < V; ++i) {
+        red[team * 2 * W + tm.lane * V + i] = st_dy[i];
+        red[team * 2 * W + W + tm.lane * V + i] = st_dyx[i];
     }
-    gn::block_partials(red, 2 * d, partials);
+    gn::block_partials(red, kTeamThreads / T, W, c0, d, partials);
 }
 
-template <int FPL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+template <int T, int V>
+__global__ void __launch_bounds__(kTeamThreads)
 k8_pass_u(int n_nodes, int d, const int* __restrict__ u_ptr,
-          const int* __restrict__ u_perm, const int* __restrict__ v_idx,
+          const int* __restrict__ u_perm, const int* __restrict__ u_nbr,
           const float* __restrict__ d_sum_v, const float* __restrict__ x_in,
           const float* __restrict__ deo_in, const float* __restrict__ e_in,
           const float* __restrict__ bn, float* __restrict__ node_u) {
-    const int u = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const gn::Ring<V, kRowsU> ring(smem);
+    const Team<T> tm;
+    const int f = blockIdx.y * (T * V) + tm.lane * V;
+    const bool on = f < d;
+    Vec<V> mu = vzero<V>(), rs = vzero<V>(), ga = vzero<V>(),
+           be = vzero<V>();
+    if (on) {
+        mu = vld<V>(bn + f);
+        rs = vld<V>(bn + d + f);
+        ga = vld<V>(bn + 2 * d + f);
+        be = vld<V>(bn + 3 * d + f);
+    }
+    const int u = tm.node;
     if (u >= n_nodes) return;
-    float mu[FPL], rs[FPL], ga[FPL], be[FPL], sc[FPL], acc_dy[FPL],
-        acc_sg[FPL], acc_x[FPL];
+    Vec<V> acc_dy = vzero<V>(), acc_sg = vzero<V>(), acc_x = vzero<V>();
+    gn::walk_slots<T, gn::kStages>(
+        tm, u_ptr[u], u_ptr[u + 1], u_perm, u_nbr,
+        [&](int st, int s, int v) {
+            if (!on) return;
+            const int64_t row = (int64_t)s * d + f;
+            ring.fetch(st, 0, x_in + row);
+            ring.fetch(st, 1, deo_in + row);
+            ring.fetch(st, 2, e_in + row);
+            ring.fetch(st, 3, d_sum_v + (int64_t)v * 2 * d + f);
+        },
+        [&](int st, int) {
+            if (!on) return;
+            const Vec<V> xs = ring.read(st, 0), dd = ring.read(st, 1),
+                         ei = ring.read(st, 2), dv = ring.read(st, 3);
 #pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        const bool on = f < d;
-        mu[k] = on ? bn[f] : 0.0f;
-        rs[k] = on ? bn[d + f] : 0.0f;
-        ga[k] = on ? bn[2 * d + f] : 0.0f;
-        be[k] = on ? bn[3 * d + f] : 0.0f;
-        sc[k] = __fmul_rn(ga[k], rs[k]);
-        acc_dy[k] = 0.0f;
-        acc_sg[k] = 0.0f;
-        acc_x[k] = 0.0f;
-    }
-    const int beg = u_ptr[u], end = u_ptr[u + 1];
-    for (int i = beg; i < end; ++i) {
-        const int s = u_perm ? u_perm[i] : i;
-        const float* dv = d_sum_v + (int64_t)v_idx[s] * 2 * d;
-        const int64_t row = (int64_t)s * d;
-#pragma unroll
-        for (int k = 0; k < FPL; ++k) {
-            const int f = lane + 32 * k;
-            if (f < d) {
-                const float x = x_in[row + f];
-                const float y = gn::bn_apply(x, mu[k], rs[k], ga[k], be[k]);
-                const float eo = __fadd_rn(fmaxf(y, 0.0f), e_in[row + f]);
+            for (int i = 0; i < V; ++i) {
+                const float x = xs.a[i];
+                const float y = gn::bn_apply(x, mu.a[i], rs.a[i], ga.a[i],
+                                             be.a[i]);
+                const float eo = __fadd_rn(fmaxf(y, 0.0f), ei.a[i]);
                 const float sg = sigmoid_f32(eo);
-                const float dy = y > 0.0f ? deo_in[row + f] : 0.0f;
-                acc_dy[k] = __fadd_rn(acc_dy[k], __fmul_rn(dy, sc[k]));
-                acc_sg[k] = __fadd_rn(acc_sg[k], __fmul_rn(sg, dv[f]));
-                acc_x[k] = __fadd_rn(acc_x[k], x);
+                const float dy = y > 0.0f ? dd.a[i] : 0.0f;
+                acc_dy.a[i] = __fadd_rn(
+                    acc_dy.a[i],
+                    __fmul_rn(dy, __fmul_rn(ga.a[i], rs.a[i])));
+                acc_sg.a[i] = __fadd_rn(acc_sg.a[i],
+                                        __fmul_rn(sg, dv.a[i]));
+                acc_x.a[i] = __fadd_rn(acc_x.a[i], x);
             }
-        }
-    }
-    float* out = node_u + (int64_t)u * 3 * d;
-#pragma unroll
-    for (int k = 0; k < FPL; ++k) {
-        const int f = lane + 32 * k;
-        if (f < d) {
-            out[f] = acc_dy[k];
-            out[d + f] = acc_sg[k];
-            out[2 * d + f] = acc_x[k];
-        }
+        });
+    if (on) {
+        float* out = node_u + (int64_t)u * 3 * d + f;
+        vst<V>(out, acc_dy);
+        vst<V>(out + d, acc_sg);
+        vst<V>(out + 2 * d, acc_x);
     }
 }
 
-int grid_for(int n_nodes) {
-    return (n_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock;
+// Rows of ``partials`` the caller allocates for N nodes: pass 1 launches one
+// block per 256 / T teams' nodes, at most one per 8 (T = 32).
+int max_blocks(int n_nodes) {
+    constexpr int min_teams = kTeamThreads / 32;
+    return (n_nodes + min_teams - 1) / min_teams;
 }
 
-template <int FPL>
+template <int T, int V>
 int launch(int n_nodes, int d, const int* v_ptr, const int* v_perm,
-           const int* u_ptr, const int* u_perm, const int* u_idx,
-           const int* v_idx, const float* proj_u, int64_t ldu,
+           const int* v_nbr, const int* u_ptr, const int* u_perm,
+           const int* u_nbr, const float* proj_u, int64_t ldu,
            const float* proj_v, int64_t ldv, const float* d_sum_u,
            const float* d_sum_v, const float* b3e, const float* e_in,
            const float* d_e_out, const float* bn, float* x_out,
            float* deo_out, float* node_u, float* node_v, double* partials,
            double* stats, cudaStream_t st) {
-    const int grid = grid_for(n_nodes);
-    const int block = 32 * kWarpsPerBlock;
-    k8_pass_v<FPL><<<grid, block, 0, st>>>(
-        n_nodes, d, v_ptr, v_perm, u_idx, proj_u, ldu, proj_v, ldv, d_sum_u,
+    // pass 1's ring takes more than 48 KB at V = 4: it opts in
+    constexpr int smem_v = gn::Ring<V, kRowsV>::bytes(gn::kStages);
+    constexpr int smem_u = gn::Ring<V, kRowsU>::bytes(gn::kStages);
+    static_assert(smem_u <= 48 * 1024, "K8 pass 2 ring");
+    if (cudaError_t e = gn::allow_smem(k8_pass_v<T, V>, smem_v)) return (int)e;
+    constexpr int teams = kTeamThreads / T;     // one node per team
+    const int blocks = (n_nodes + teams - 1) / teams;
+    const dim3 grid(blocks, gn::col_chunks(d, T * V));
+    const dim3 block(kTeamThreads);
+    k8_pass_v<T, V><<<grid, block, smem_v, st>>>(
+        n_nodes, d, v_ptr, v_perm, v_nbr, proj_u, ldu, proj_v, ldv, d_sum_u,
         d_sum_v, b3e, e_in, d_e_out, bn, x_out, deo_out, node_v, partials);
-    k8_pass_u<FPL><<<grid, block, 0, st>>>(
-        n_nodes, d, u_ptr, u_perm, v_idx, d_sum_v, x_out, deo_out, e_in, bn,
+    k8_pass_u<T, V><<<grid, block, smem_u, st>>>(
+        n_nodes, d, u_ptr, u_perm, u_nbr, d_sum_v, x_out, deo_out, e_in, bn,
         node_u);
-    gn::launch_reduce_partials(grid, 2 * d, partials, stats, st);
+    gn::launch_reduce_partials(blocks, 2 * d, partials, stats, st);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Blocks of pass 1 for N nodes: the caller sizes ``partials`` as
-// [gn_k8_num_blocks(N), 2d] float64.
-extern "C" int gn_k8_num_blocks(int n_nodes) { return grid_for(n_nodes); }
+// Rows of float64 partial sums for N nodes: the caller sizes ``partials``
+// as [gn_k8_num_blocks(N), 2d].
+extern "C" int gn_k8_num_blocks(int n_nodes) { return max_blocks(n_nodes); }
 
 extern "C" int gn_k8_train_layer_bwd(
     int n_nodes, int d, const int* v_ptr, const int* v_perm,
-    const int* u_ptr, const int* u_perm, const int* u_idx, const int* v_idx,
+    const int* v_nbr, const int* u_ptr, const int* u_perm, const int* u_nbr,
     const float* proj_u, int64_t ldu, const float* proj_v, int64_t ldv,
     const float* d_sum_u, const float* d_sum_v, const float* b3e,
     const float* e_in, const float* d_e_out, const float* bn, float* x_out,
     float* deo_out, float* node_u, float* node_v, double* partials,
     double* stats, void* stream) {
-    if (n_nodes <= 0) return (int)cudaErrorInvalidValue;
+    if (n_nodes <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GN_K8_LAUNCH(FPL)                                                     \
-    return launch<FPL>(n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx, \
-                       proj_u, ldu, proj_v, ldv, d_sum_u, d_sum_v, b3e, e_in,  \
-                       d_e_out, bn, x_out, deo_out, node_u, node_v, partials,  \
-                       stats, st)
-    if (d <= 32) GN_K8_LAUNCH(1);
-    if (d <= 64) GN_K8_LAUNCH(2);
-    if (d <= 128) GN_K8_LAUNCH(4);
+    const bool vec = d % 4 == 0
+                     && gn::rows_16b({proj_u, proj_v, d_sum_u, d_sum_v, b3e,
+                                      e_in, d_e_out, bn, x_out, deo_out,
+                                      node_u, node_v}, {ldu, ldv});
+#define GN_K8_LAUNCH(T, V)                                                    \
+    return launch<T, V>(n_nodes, d, v_ptr, v_perm, v_nbr, u_ptr, u_perm,     \
+                        u_nbr, proj_u, ldu, proj_v, ldv, d_sum_u, d_sum_v,   \
+                        b3e, e_in, d_e_out, bn, x_out, deo_out, node_u,      \
+                        node_v, partials, stats, st)
+    const int t = gn::team_size(d, vec ? 4 : 1);
+    if (vec) {
+        if (t == 8) GN_K8_LAUNCH(8, 4);
+        if (t == 16) GN_K8_LAUNCH(16, 4);
+        GN_K8_LAUNCH(32, 4);
+    }
+    if (t == 8) GN_K8_LAUNCH(8, 1);
+    if (t == 16) GN_K8_LAUNCH(16, 1);
+    GN_K8_LAUNCH(32, 1);
 #undef GN_K8_LAUNCH
-    return (int)cudaErrorInvalidValue;
 }

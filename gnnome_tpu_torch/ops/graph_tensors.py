@@ -7,8 +7,10 @@ by dst (the same order as ``GraphTensors.build``, graph_tensors.py:142-146),
 so every per-edge array has exactly E rows and the slots of node i's
 incoming edges are the contiguous range ``dst_ptr[i]:dst_ptr[i+1]``.  A
 stable src-sorted permutation of the slots with its own row pointers gives
-each node's outgoing edges.  Reductions into nodes walk these sorted segments
-in a fixed order, so results are bitwise reproducible (no float atomics).
+each node's outgoing edges, and ``src_nbr`` the dst of each edge in that
+order, so a kernel walking a node's out-edges finds each partner node with
+one contiguous load.  Reductions into nodes walk these sorted segments in a
+fixed order, so results are bitwise reproducible (no float atomics).
 
 All index arrays are ``int32`` on the chosen device.
 """
@@ -35,6 +37,7 @@ class DeviceGraph:
     dst_ptr: torch.Tensor       # int32 [N+1]: in-edges of i = slots dst_ptr[i]:dst_ptr[i+1]
     src_perm: torch.Tensor      # int32 [E]: slots stably sorted by src
     src_ptr: torch.Tensor       # int32 [N+1]: out-edges of i = src_perm[src_ptr[i]:src_ptr[i+1]]
+    src_nbr: torch.Tensor       # int32 [E]: dst[src_perm], the partner of each out-edge
     n_nodes: int
     n_edges: int
 
@@ -63,6 +66,7 @@ class DeviceGraph:
         return cls(src=t(src_s), dst=t(dst_s), slot_of_eid=t(slot_of_eid),
                    eid_of_slot=t(order), dst_ptr=t(_row_ptr(dst_s, n_nodes)),
                    src_perm=t(src_perm), src_ptr=t(_row_ptr(src_s, n_nodes)),
+                   src_nbr=t(dst_s[src_perm]),
                    n_nodes=int(n_nodes), n_edges=E)
 
     @classmethod
@@ -70,12 +74,14 @@ class DeviceGraph:
         return cls.build(graph.src, graph.dst, graph.num_nodes, device)
 
     def roles(self, flip: bool):
-        """Endpoint roles ``(u_idx, v_idx, (v_ptr, v_perm), (u_ptr, u_perm))``:
-        u = src and v = dst, or swapped under ``flip`` (the reversed-graph
-        pass).  ``*_ptr``/``*_perm`` list each node's edges in that role;
-        ``perm`` None means the identity (the dst side: slots are dst-sorted)."""
-        by_dst = (self.dst_ptr, None)
-        by_src = (self.src_ptr, self.src_perm)
+        """Endpoint roles ``(u_idx, v_idx, (v_ptr, v_perm, v_nbr),
+        (u_ptr, u_perm, u_nbr))``: u = src and v = dst, or swapped under
+        ``flip`` (the reversed-graph pass).  ``*_ptr``/``*_perm`` list each
+        node's edges in that role, ``perm`` None meaning the identity (the
+        dst side: slots are dst-sorted); ``*_nbr`` is the other endpoint of
+        each listed edge, in the same order (``v_nbr[k] = u_idx[v_perm[k]]``)."""
+        by_dst = (self.dst_ptr, None, self.src)
+        by_src = (self.src_ptr, self.src_perm, self.src_nbr)
         if flip:
             return self.dst, self.src, by_src, by_dst
         return self.src, self.dst, by_dst, by_src

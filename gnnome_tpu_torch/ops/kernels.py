@@ -38,7 +38,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
 SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
            "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
            "k9_aggregate.cu")
-HEADERS = ("edge_math.cuh", "csr_sum.cuh")
+HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -122,7 +122,7 @@ def _library():
                 P, P, P]                     # sum_u, sum_v, stream
             lib.gn_k3_edge_stage.restype = I
             lib.gn_k3_edge_stage.argtypes = [
-                I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx
+                I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, v_nbr, u_ptr, u_perm, u_nbr
                 P, L, P, L,                  # proj_u, ldu, proj_v, ldv
                 P, P, P,                     # b3e, e_in, bn
                 P, P, P, P]                  # e_out, sum_v, sum_u, stream
@@ -139,7 +139,7 @@ def _library():
             lib.gn_k8_num_blocks.argtypes = [I]
             lib.gn_k8_train_layer_bwd.restype = I
             lib.gn_k8_train_layer_bwd.argtypes = [
-                I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, u_ptr, u_perm, u_idx, v_idx
+                I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, v_nbr, u_ptr, u_perm, u_nbr
                 P, L, P, L,                  # proj_u, ldu, proj_v, ldv
                 P, P, P, P, P, P,            # d_sum_u, d_sum_v, b3e, e_in, d_e_out, bn
                 P, P, P, P, P, P, P]         # x, d_eo, node_u, node_v, partials, stats, stream
@@ -167,9 +167,11 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device,
 
 
 def _check_csr(v_csr, u_csr, n: int, E: int, device) -> None:
-    """The ``(ptr [N+1], perm [E] or None)`` pairs of ``DeviceGraph.roles``."""
-    for side, (ptr, perm) in (("v", v_csr), ("u", u_csr)):
+    """The ``(ptr [N+1], perm [E] or None, nbr [E])`` triples of
+    ``DeviceGraph.roles``."""
+    for side, (ptr, perm, nbr) in (("v", v_csr), ("u", u_csr)):
         _check(f"{side}_ptr", ptr, torch.int32, (n + 1,), device)
+        _check(f"{side}_nbr", nbr, torch.int32, (E,), device)
         if perm is not None:
             _check(f"{side}_perm", perm, torch.int32, (E,), device)
 
@@ -249,8 +251,6 @@ def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
         raise ValueError(f"K2: unsupported device {pay_u.device}")
     dev = pay_u.device
     E, Dp = pay_u.shape
-    if Dp > 128:
-        raise ValueError(f"K2: Dp={Dp} > 128 not supported")
     for name, t in (("pay_u", pay_u), ("pay_v", pay_v)):
         _check(name, t, torch.float32, (E, Dp), dev, rows_contiguous=False)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
@@ -293,9 +293,10 @@ def k3_edge_stage_plain(u_idx, v_idx, proj_u, proj_v, b3e, e_in, bn):
 
 def k3_edge_stage(u_idx, v_idx, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn):
     """K3, the fused eval edge stage (csrc/k3_edge_stage.cu).  ``v_csr`` /
-    ``u_csr`` = ``(ptr [N+1], perm [E] or None)`` list each node's slots in
-    the v / u role (``DeviceGraph.roles``).  Returns what
-    ``k3_edge_stage_plain`` returns."""
+    ``u_csr`` = ``(ptr [N+1], perm [E] or None, nbr [E])`` list each node's
+    slots in the v / u role and their partner nodes (``DeviceGraph.roles``).
+    Any d; rows that are 16-byte aligned with d divisible by 4 take the
+    kernel's float4 path.  Returns what ``k3_edge_stage_plain`` returns."""
     if proj_u.device.type == "cpu":
         return k3_edge_stage_plain(u_idx, v_idx, proj_u, proj_v, b3e, e_in,
                                    bn)
@@ -305,8 +306,6 @@ def k3_edge_stage(u_idx, v_idx, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn):
     E, d = b3e.shape
     n = proj_u.shape[0]
     f32, i32 = torch.float32, torch.int32
-    if d > 128:
-        raise ValueError(f"K3: d={d} > 128 not supported")
     _check("proj_u", proj_u, f32, (n, 2 * d), dev, rows_contiguous=False)
     _check("proj_v", proj_v, f32, (n, 2 * d), dev, rows_contiguous=False)
     for name, t in (("b3e", b3e), ("e_in", e_in)):
@@ -321,8 +320,7 @@ def k3_edge_stage(u_idx, v_idx, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn):
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gn_k3_edge_stage(
-            n, d, _ptr(v_csr[0]), _ptr(v_csr[1]), _ptr(u_csr[0]),
-            _ptr(u_csr[1]), _ptr(u_idx), _ptr(v_idx),
+            n, d, *map(_ptr, v_csr), *map(_ptr, u_csr),
             _ptr(proj_u), proj_u.stride(0), _ptr(proj_v), proj_v.stride(0),
             _ptr(b3e), _ptr(e_in), _ptr(bn),
             _ptr(e_out), _ptr(sum_v), _ptr(sum_u),
@@ -386,8 +384,6 @@ def k7_gate_stats(u_idx, v_idx, bu, bv, b3e):
     dev = bu.device
     E, d = b3e.shape
     n = bu.shape[0]
-    if d > 128:
-        raise ValueError(f"K7: d={d} > 128 not supported")
     _check("bu", bu, torch.float32, (n, d), dev, rows_contiguous=False)
     _check("bv", bv, torch.float32, (n, d), dev, rows_contiguous=False)
     _check("b3e", b3e, torch.float32, (E, d), dev)
@@ -453,8 +449,6 @@ def k8_train_layer_bwd(u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj_u,
     E, d = b3e.shape
     n = proj_u.shape[0]
     f32, i32 = torch.float32, torch.int32
-    if d > 128:
-        raise ValueError(f"K8: d={d} > 128 not supported")
     if n == 0:
         raise ValueError("K8: graph without nodes")
     _check("proj_u", proj_u, f32, (n, 2 * d), dev, rows_contiguous=False)
@@ -477,8 +471,7 @@ def k8_train_layer_bwd(u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj_u,
     stats = torch.empty(2 * d, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gn_k8_train_layer_bwd(
-            n, d, _ptr(v_csr[0]), _ptr(v_csr[1]), _ptr(u_csr[0]),
-            _ptr(u_csr[1]), _ptr(u_idx), _ptr(v_idx),
+            n, d, *map(_ptr, v_csr), *map(_ptr, u_csr),
             _ptr(proj_u), proj_u.stride(0), _ptr(proj_v), proj_v.stride(0),
             _ptr(d_sum_u), _ptr(d_sum_v), _ptr(b3e), _ptr(e_in),
             _ptr(d_e_out), _ptr(bn), _ptr(x), _ptr(d_eo), _ptr(node_u),
@@ -511,8 +504,6 @@ def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
         raise ValueError(f"K9: unsupported device {pay.device}")
     dev = pay.device
     E, H = pay.shape
-    if H > 128:
-        raise ValueError(f"K9: H={H} > 128 not supported")
     _check("pay", pay, torch.float32, (E, H), dev)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)

@@ -123,7 +123,7 @@ class _TrainEdgeStage(torch.autograd.Function):
         d_y = torch.where(y > 0, d_eo, torch.zeros_like(d_eo))
         d_b3e = d_y * (gamma * inv) + (c1 + c2 * x)
         # the same term summed into each endpoint: c1 * deg + c2 * xsum
-        (v_ptr, _), (u_ptr, _) = v_csr, u_csr
+        v_ptr, u_ptr = v_csr[0], u_csr[0]
         deg_u = (u_ptr[1:] - u_ptr[:-1]).to(h.dtype)[:, None]
         deg_v = (v_ptr[1:] - v_ptr[:-1]).to(h.dtype)[:, None]
         zu = c2 * node_u[:, 2 * d:] + c1 * deg_u

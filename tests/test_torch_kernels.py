@@ -119,12 +119,14 @@ def test_k3_plain_vs_pallas_fused_eval_edge_stage(graphs, flip):
     np.testing.assert_allclose(got_u, np.asarray(sum_u)[:n], **SUM_TOL)
 
 
+@pytest.mark.parametrize("d", [D, 160])
 @pytest.mark.parametrize("flip", [False, True])
-def test_k3_plain_vs_xla_edge_stage(graphs, flip):
+def test_k3_plain_vs_xla_edge_stage(graphs, flip, d):
     """Against the JAX package's unfused XLA ops: fused_gate_gather ->
-    eval batch_norm -> relu -> residual -> sigmoid -> gated_mean_pair."""
+    eval batch_norm -> relu -> residual -> sigmoid -> gated_mean_pair.
+    d = 160 is a width the card path takes in two column chunks."""
     g, gt, _, dg = graphs
-    a, var = _inputs(g, seed=2)
+    a, var = _inputs(g, seed=2, d=d)
     bn = a["bn"]
     gate, a2h_u, a3h_v = jmsg.fused_gate_gather(
         gt, gt.pad_nodes(a["proj_u"]), gt.pad_nodes(a["proj_v"]),
@@ -140,7 +142,6 @@ def test_k3_plain_vs_xla_edge_stage(graphs, flip):
     n = g.num_nodes
     np.testing.assert_allclose(got_e, _jax_host(gt, e_out, g.num_edges),
                                rtol=1e-6, atol=1e-5)
-    d = D
     np.testing.assert_allclose(got_v[:, :d] / (got_v[:, d:] + 1e-6),
                                np.asarray(h_fwd)[:n], **SUM_TOL)
     np.testing.assert_allclose(got_u[:, :d] / (got_u[:, d:] + 1e-6),
@@ -179,6 +180,32 @@ def test_device_graph_layout(graphs):
     assert all(t.dtype == torch.int32 for t in
                (dg.src, dg.dst, dg.slot_of_eid, dg.eid_of_slot, dg.dst_ptr,
                 dg.src_perm, dg.src_ptr))
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_device_graph_partner_arrays(graphs, flip):
+    """Each role's CSR-order partner array (what K3 and K8 read) against
+    numpy: node i's entries list the other endpoint of its edges in that
+    role, in slot order, and ``nbr[k]`` is the partner of slot ``perm[k]``."""
+    g, _, _, dg = graphs
+    N = g.num_nodes
+    src, dst = np.asarray(g.src), np.asarray(g.dst)
+    order = np.argsort(dst, kind="stable")          # slot order
+    src_s, dst_s = src[order], dst[order]
+    u_np, v_np = (dst_s, src_s) if flip else (src_s, dst_s)
+    u_idx, v_idx, v_csr, u_csr = dg.roles(flip)
+    np.testing.assert_array_equal(u_idx.numpy(), u_np)
+    np.testing.assert_array_equal(v_idx.numpy(), v_np)
+    for (ptr, perm, nbr), node_of, partner_of in ((v_csr, v_np, u_np),
+                                                  (u_csr, u_np, v_np)):
+        assert nbr.dtype == torch.int32 and nbr.shape == (g.num_edges,)
+        ptr, nbr = ptr.numpy(), nbr.numpy()
+        slots = np.arange(g.num_edges) if perm is None else perm.numpy()
+        np.testing.assert_array_equal(nbr, partner_of[slots])
+        for i in range(0, N, 23):
+            mine = np.nonzero(node_of == i)[0]       # slot order
+            np.testing.assert_array_equal(nbr[ptr[i]:ptr[i + 1]],
+                                          partner_of[mine])
 
 
 def test_wrappers_count_only_kernel_launches(graphs):
@@ -229,19 +256,21 @@ def _jax_train_stage(gt, a, flip):
     return fn, tuple(jnp.asarray(x) for x in args)
 
 
+@pytest.mark.parametrize("d", [D, 160])
 @pytest.mark.parametrize("flip", [False, True])
-def test_train_edge_stage_vs_pallas_fused_train_stage(graphs, flip):
+def test_train_edge_stage_vs_pallas_fused_train_stage(graphs, flip, d):
     """Forward outputs, batch statistics and the VJP against h, w_uv, b_uv,
     B3, e, gamma and beta under seeded random cotangents (real edges and
-    nodes only; JAX's padded rows get zero cotangents)."""
+    nodes only; JAX's padded rows get zero cotangents).  d = 160 is a width
+    the card path takes in two column chunks."""
     g, _, gt, dg = graphs
     assert (gt.wplan_flip if flip else gt.wplan).n_ovf > 0   # overflow tail
     n, E = g.num_nodes, g.num_edges
-    a = _train_inputs(g, seed=10)
+    a = _train_inputs(g, seed=10, d=d)
     rng = np.random.default_rng(11)
-    d_eo = rng.standard_normal((E, D)).astype(np.float32)
-    d_sv = rng.standard_normal((n, 2 * D)).astype(np.float32)
-    d_su = rng.standard_normal((n, 2 * D)).astype(np.float32)
+    d_eo = rng.standard_normal((E, d)).astype(np.float32)
+    d_sv = rng.standard_normal((n, 2 * d)).astype(np.float32)
+    d_su = rng.standard_normal((n, 2 * d)).astype(np.float32)
 
     fn, args = _jax_train_stage(gt, a, flip)
     (e_out, sum_v, sum_u, mean, var), vjp = jax.vjp(fn, *args)

@@ -343,6 +343,27 @@ def test_eval_logits_vs_jax(graphs, norm, flip, backend):
                                np.asarray(ref)[:g.num_edges, 0], **LOGIT_TOL)
 
 
+def test_eval_logits_vs_jax_at_d96(graphs):
+    """The layer-norm model at d = 96, whose gated means are K2 sums of
+    width 192 (two column chunks on the card), against the JAX forward
+    (Pallas, interpret mode)."""
+    g, gts, dg = graphs
+    gt = gts["pallas"]
+    wide = dict(dim_latent=96, hidden_edge_scores=96)
+    params, state = _jax_params("layer", **wide)
+    _jitter_norms(params, 5)
+    x, e = node_features(g), edge_features(g)
+    ref, _ = forward(params, state, gt, gt.pad_nodes(x), gt.pad_edges(e),
+                     JaxModelConfig(**{**SMALL, **wide,
+                                       "normalization": "layer"}),
+                     training=False, flip=False, backend="pallas")
+    model = _port_model(params, state, "layer", **wide)
+    with torch.inference_mode():
+        got = model(dg, torch.from_numpy(x), torch.from_numpy(e))
+    np.testing.assert_allclose(got.numpy()[:, 0],
+                               np.asarray(ref)[:g.num_edges, 0], **LOGIT_TOL)
+
+
 def test_layer_norm_vs_torch_layer_norm():
     """The explicit form agrees with ``F.layer_norm`` (both float32)."""
     rng = np.random.default_rng(6)
