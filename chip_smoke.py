@@ -23,12 +23,17 @@ seconds since the script started):
 4. ``kernels``: K1, K2 (at Dp = 128 and 64), K3, K6, K7, K8 and K9 (each at
    both flips) at the golden graph's shapes on its real CSR, inputs from
    ``--seed``; each kernel against its plain PyTorch version on the card,
-   and timed (CUDA events around 10 back-to-back calls, median of 10 such
-   repeats, after warm-up) beside its least possible time and, where one
-   PyTorch call computes the same function, that call's time; for K3 and
-   K8 also the memory rate their measured time gives the bytes they move.
-   Then K3, K7 and K8 at d = 192 and K2, K9 at width 256 on the same
-   graph, each against its plain version and bitwise reproducible.
+   and timed beside its least possible time and, where one PyTorch call
+   computes the same function, that call's time: ``kernel_ms`` by CUDA
+   events around 10 back-to-back calls (median of 10 such repeats, after
+   warm-up; the host's share of a call included, which a short kernel's
+   wrapper can exceed), ``device_ms`` the same with each repeat's calls
+   queued behind a sleep kernel (the device alone); for K3 and K8 also the
+   memory rate their device time gives the bytes they move, for K6 and K7
+   the rate it gives their bound's bytes.  Then K3, K6, K7 and K8 at
+   d = 192 and K2, K9 at width 256 on the same graph, and K6 at H = 20 on
+   its one-float path; K6 on column slices of wider arrays (row-strided);
+   each against its plain version and bitwise reproducible.
 5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
@@ -56,9 +61,10 @@ seconds since the script started):
    run must, then ``cli infer`` with the model it saved on phase 5's
    dataset, whose longest contig must be an exact substring of the genome.
 
-Then one JSON line with every kernel's numbers (``launches`` from the
-training path of phase 7, for K1 and K2 from that of phase 8; every path's
-in ``launches_by_path``), the ``nvidia-smi`` line, and the last line
+Then one JSON line with every kernel's numbers (``ms`` its device time,
+``call_ms`` its back-to-back call time; ``launches`` from the training path
+of phase 7, for K1 and K2 from that of phase 8; every path's in
+``launches_by_path``), the ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero at once.
 """
@@ -105,9 +111,10 @@ LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 PROB_ATOL = 1e-5
 JAX_GOLDEN_AP = 0.9992886          # the JAX package, CPU, same graph+weights
 AP_TOL = 1e-4
-# the width checks of the kernels phase: d above 128 for K3, K7 and K8 (two
-# column chunks), and payloads of 256 for K2 and K9
-WIDE_D, WIDE_PAY = 192, 256
+# the width checks of the kernels phase: d above 128 for K3, K6, K7 and K8
+# (two column chunks), payloads of 256 for K2 and K9, and K6 at H = 20 with
+# odd row strides (its one-float path)
+WIDE_D, WIDE_PAY, ODD_H = 192, 256, 20
 # K7 / K8 global sums are float64 in another order than the plain version's:
 # within 1e-9 of the summed magnitudes.  K8's x is exact (the same
 # operations), d_eo within EDGE_ATOL (sigmoid), its node sums as K3's.
@@ -187,27 +194,44 @@ def average_precision(probs, labels) -> float:
     return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
 
 
-def cuda_ms(fn, reps: int = 10, n: int = 10, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 10, n: int = 10, warmup: int = 3,
+            queued: bool = False) -> float:
     """Milliseconds per call of ``fn`` on the card: the median over ``reps``
     repeats of ``n`` back-to-back calls between two CUDA events.  Calls
     queue ahead of the device, so the host's per-call overhead hides
-    behind the kernels whenever the device is the bottleneck."""
+    behind the kernels whenever the device is the bottleneck.  With
+    ``queued`` the host queues each repeat's calls while the device still
+    runs a sleep kernel, so the time is the device's alone: the host's share
+    of a call, which can exceed a short kernel's time, is left out."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    times, cycles = [], 1 << 24            # ~10 ms of sleep at 1.7 GHz
+    while len(times) < reps:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
         a.record()
         for _ in range(n):
             fn()
         b.record()
+        ahead = not queued or not a.query()     # the device still slept
         b.synchronize()
-        times.append(a.elapsed_time(b) / n)
+        if ahead:
+            times.append(a.elapsed_time(b) / n)
+        else:                      # the host fell behind: sleep longer
+            cycles *= 2
+            check(cycles <= 1 << 32, "calls queued behind a sleep kernel")
     return statistics.median(times)
+
+
+def kernel_times(fn) -> dict:
+    """A kernel wrapper's ``kernel_ms`` (back-to-back calls, host included)
+    and ``device_ms`` (calls queued behind a sleep: the device alone)."""
+    return {"kernel_ms": cuda_ms(fn), "device_ms": cuda_ms(fn, queued=True)}
 
 
 def bound(nbytes: float, flops: float, flops64: float = 0.0):
@@ -322,6 +346,24 @@ def check_k7(g, flip, bu, bv, b3e, what):
             float(((got - ref).abs() / ref.abs().clamp_min(1e-300)).max()))
 
 
+def check_k6(g, flip, puv, be, what):
+    """K6 bit-equal to its plain version and bitwise reproducible; returns
+    the max |diff| (0)."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    u, v, _, _ = g.roles(flip)
+    got = K.k6_score_gate(u, v, puv, be)
+    ref = K.k6_score_gate_plain(u, v, puv, be)
+    torch.cuda.synchronize()
+    diff = float((got - ref).abs().max())
+    check(diff == 0.0, f"K6 {what} flip={flip} diff {diff}")
+    check(torch.equal(got, K.k6_score_gate(u, v, puv, be)),
+          f"K6 {what} flip={flip} bitwise reproducible")
+    return diff
+
+
 def check_k8(g, flip, args, what):
     """K8 against its plain version (x exact, d_eo within EDGE_ATOL, node
     sums, float64 sums) and bitwise reproducible; returns (max |diff| of
@@ -405,10 +447,10 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         args, diff_e, diff = check_k3(g, flip, proj_u, proj_v, b3e, e_in, bn,
                                       f"d={d}")
         u, v = args[:2]
-        ms = cuda_ms(lambda: K.k3_edge_stage(*args))
+        t = kernel_times(lambda: K.k3_edge_stage(*args))
         k3[f"flip={flip}"] = {
-            "max_abs_diff": diff, "max_abs_diff_e_out": diff_e,
-            "kernel_ms": ms, "achieved_gbps": k3_moved / ms / 1e6,
+            "max_abs_diff": diff, "max_abs_diff_e_out": diff_e, **t,
+            "achieved_gbps": k3_moved / t["device_ms"] / 1e6,
             "plain_ms": cuda_ms(lambda: K.k3_edge_stage_plain(
                 u, v, proj_u, proj_v, b3e, e_in, bn))}
     k3.update(bound_ms=k3_bound, bound_by=k3_by, bytes=k3_bytes,
@@ -417,24 +459,27 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                          "sums_rtol": SUM_RTOL})
     out["k3_edge_stage"] = k3
 
-    k6 = {"launches_per_forward": per_forward["k6_score_gate"]}
-    for flip in (False, True):
-        u, v, _, _ = g.roles(flip)
-        got = K.k6_score_gate(u, v, puv, be)
-        ref = K.k6_score_gate_plain(u, v, puv, be)
-        torch.cuda.synchronize()
-        diff = float((got - ref).abs().max())
-        check(diff <= EDGE_ATOL, f"K6 flip={flip} diff {diff}")
-        k6[f"flip={flip}"] = {
-            "max_abs_diff": diff,
-            "kernel_ms": cuda_ms(lambda: K.k6_score_gate(u, v, puv, be)),
-            "plain_ms": cuda_ms(lambda: K.k6_score_gate_plain(u, v, puv,
-                                                              be))}
     # read puv, be, u/v indices; write z; add, add, max per element
     k6_bytes = f4 * (N * 2 * H + 2 * E * H) + i4 * 2 * E
     k6_bound, k6_by = bound(k6_bytes, 3.0 * E * H)
+    k6 = {"launches_per_forward": per_forward["k6_score_gate"]}
+    # the same values as column slices of wider arrays (row-strided)
+    puv_s = torch.zeros(N, 2 * H + 8, device=dev)[:, :2 * H].copy_(puv)
+    be_s = torch.zeros(E, H + 8, device=dev)[:, :H].copy_(be)
+    for flip in (False, True):
+        u, v, _, _ = g.roles(flip)
+        diff = check_k6(g, flip, puv, be, f"H={H}")
+        check_k6(g, flip, puv_s, be_s, f"H={H} strided")
+        t = kernel_times(lambda: K.k6_score_gate(u, v, puv, be))
+        k6[f"flip={flip}"] = {
+            "max_abs_diff": diff, **t,
+            "achieved_gbps": k6_bytes / t["device_ms"] / 1e6,
+            "strided_device_ms": cuda_ms(lambda: K.k6_score_gate(
+                u, v, puv_s, be_s), queued=True),
+            "plain_ms": cuda_ms(lambda: K.k6_score_gate_plain(u, v, puv,
+                                                              be))}
     k6.update(bound_ms=k6_bound, bound_by=k6_by, bytes=k6_bytes,
-              tolerance={"atol": EDGE_ATOL})
+              bitwise_reproducible=True, tolerance={"atol": 0.0})
     out["k6_score_gate"] = k6
 
     # ---- training kernels: the model's [N, 4d] training projection
@@ -442,21 +487,22 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     tu, tv = proj4[:, :2 * d], proj4[:, 2 * d:]
     d_e_out, d_sum_u, d_sum_v = randn(E, d), randn(N, 2 * d), randn(N, 2 * d)
 
-    k7 = {}
-    bu, bv = tu[:, :d], tv[:, :d]
-    for flip in (False, True):
-        u, v, _, _ = g.roles(flip)
-        diff, rel = check_k7(g, flip, bu, bv, b3e, f"d={d}")
-        k7[f"flip={flip}"] = {
-            "max_abs_diff": diff, "max_rel_diff": rel,
-            "kernel_ms": cuda_ms(lambda: K.k7_gate_stats(u, v, bu, bv, b3e)),
-            "plain_ms": cuda_ms(lambda: K.k7_gate_stats_plain(u, v, bu, bv,
-                                                              b3e))}
     # read the two [N, d] gate columns, b3e, u/v indices; write [2d] f64.
     # Per (edge, feature): 2 f32 adds (the gate); 3 f64 operations (sum x,
     # x*x, sum x*x)
     k7_bytes = f4 * (2 * N * d + E * d) + i4 * 2 * E + 8 * 2 * d
     k7_bound, k7_by = bound(k7_bytes, 2.0 * E * d, 3.0 * E * d)
+    k7 = {}
+    bu, bv = tu[:, :d], tv[:, :d]
+    for flip in (False, True):
+        u, v, _, _ = g.roles(flip)
+        diff, rel = check_k7(g, flip, bu, bv, b3e, f"d={d}")
+        t = kernel_times(lambda: K.k7_gate_stats(u, v, bu, bv, b3e))
+        k7[f"flip={flip}"] = {
+            "max_abs_diff": diff, "max_rel_diff": rel, **t,
+            "achieved_gbps": k7_bytes / t["device_ms"] / 1e6,
+            "plain_ms": cuda_ms(lambda: K.k7_gate_stats_plain(u, v, bu, bv,
+                                                              b3e))}
     k7.update(bound_ms=k7_bound, bound_by=k7_by, bytes=k7_bytes,
               tolerance={"sum64_rtol_of_magnitudes": SUM64_RTOL})
     out["k7_gate_stats"] = k7
@@ -468,7 +514,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         diff, d_eo_diff = check_k8(g, flip, k8_args, f"d={d}")
         k8[f"flip={flip}"] = {
             "max_abs_diff": diff, "max_abs_diff_d_eo": d_eo_diff,
-            "kernel_ms": cuda_ms(lambda: K.k8_train_layer_bwd(
+            **kernel_times(lambda: K.k8_train_layer_bwd(
                 u, v, v_csr, u_csr, *k8_args)),
             "plain_ms": cuda_ms(lambda: K.k8_train_layer_bwd_plain(
                 u, v, *k8_args))}
@@ -487,7 +533,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     k8_moved = k8_bytes + f4 * 3 * E * d + i4 * E
     for flip in (False, True):
         r = k8[f"flip={flip}"]
-        r["achieved_gbps"] = k8_moved / r["kernel_ms"] / 1e6
+        r["achieved_gbps"] = k8_moved / r["device_ms"] / 1e6
     k8.update(bound_ms=k8_bound, bound_by=k8_by, bytes=k8_bytes,
               moved_bytes=k8_moved, bitwise_reproducible=True,
               tolerance={"x": "exact", "d_eo_atol": EDGE_ATOL,
@@ -511,8 +557,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         acc = torch.zeros(2 * N, H, device=dev)
         k9[f"flip={flip}"] = {
             "max_abs_diff": diff,
-            "kernel_ms": cuda_ms(lambda: K.k9_aggregate(u, v, v_csr, u_csr,
-                                                        pay)),
+            **kernel_times(lambda: K.k9_aggregate(u, v, v_csr, u_csr,
+                                                  pay)),
             "plain_ms": cuda_ms(lambda: K.k9_aggregate_plain(u, v, pay, N)),
             "library_ms": cuda_ms(lambda: acc.zero_().index_add_(0, uv,
                                                                  pay2))}
@@ -539,8 +585,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
               f"K1 flip={flip} bitwise reproducible")
         k1[f"flip={flip}"] = {
             "max_abs_diff": diff,
-            "kernel_ms": cuda_ms(lambda: K.k1_gather_gate(u, v, proj_u,
-                                                          proj_v, b3e)),
+            **kernel_times(lambda: K.k1_gather_gate(u, v, proj_u, proj_v,
+                                                    b3e)),
             "plain_ms": cuda_ms(lambda: K.k1_gather_gate_plain(
                 u, v, proj_u, proj_v, b3e))}
     # read the used [N, 2d] halves of the projection, b3e, u/v indices;
@@ -570,7 +616,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
             uv = torch.cat([u.long(), v.long() + N])
             r[f"flip={flip}"] = {
                 "max_abs_diff": diff,
-                "kernel_ms": cuda_ms(lambda: K.k2_aggregate(
+                **kernel_times(lambda: K.k2_aggregate(
                     u, v, v_csr, u_csr, pay_u, pay_v)),
                 "plain_ms": cuda_ms(lambda: K.k2_aggregate_plain(
                     u, v, pay_u, pay_v, N)),
@@ -587,22 +633,32 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                            "[pay_u; pay_v]")
     out["k2_aggregate"] = k2
 
-    # ---- widths above 128: K3, K7, K8 at d = WIDE_D (K3 and K8 in two
-    # column chunks) and K2, K9 at WIDE_PAY, each against its plain version
-    # and bitwise reproducible, both flips; not timed
-    dw, wp = WIDE_D, WIDE_PAY
+    # ---- widths above 128: K3, K6, K7, K8 at d = WIDE_D (two column
+    # chunks) and K2, K9 at WIDE_PAY, and K6 at ODD_H with odd row strides
+    # (the one-float path), each against its plain version and bitwise
+    # reproducible, both flips; not timed
+    dw, wp, ho = WIDE_D, WIDE_PAY, ODD_H
+    # K6's operands as column slices: row strides 2 * dw + 8 and dw + 8
+    # (float4 rows), 2 * ho + 1 and ho + 1 (one float per lane)
+    puv_w = randn(N, 2 * dw + 8)[:, :2 * dw]
+    be_w = randn(E, dw + 8)[:, :dw]
+    puv_o = randn(N, 2 * ho + 1)[:, :2 * ho]
+    be_o = randn(E, ho + 1)[:, :ho]
     projw = randn(N, 5 * dw)
     b3w, e_inw, d_e_outw = randn(E, dw), randn(E, dw), randn(E, dw)
     bnw = bn_rows(dw, randn, rand)
     d_suw, d_svw = randn(N, 2 * dw), randn(N, 2 * dw)
     pay_u, pay_v = randn(E, wp), randn(E, wp)
-    wide = {"d": dw, "width": wp}
+    wide = {"d": dw, "width": wp, "k6_odd_h": ho}
     for flip in (False, True):
         u, v, v_csr, u_csr = g.roles(flip)
         pu, pv = projw[:, :2 * dw], projw[:, 2 * dw:4 * dw]
         r = {}
         _, _, r["k3_max_abs_diff"] = check_k3(g, flip, pu, pv, b3w, e_inw,
                                               bnw, f"d={dw}")
+        r["k6_max_abs_diff"] = check_k6(g, flip, puv_w, be_w, f"H={dw}")
+        r["k6_odd_max_abs_diff"] = check_k6(g, flip, puv_o, be_o,
+                                            f"H={ho} one-float")
         r["k7_max_abs_diff"], _ = check_k7(g, flip, pu[:, :dw], pv[:, :dw],
                                            b3w, f"d={dw}")
         r["k8_max_abs_diff"], _ = check_k8(
@@ -1086,7 +1142,8 @@ def main(argv=None) -> int:
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r[f]["max_abs_diff"]
                                    for f in ("flip=False", "flip=True")),
-                "ms": flip0["kernel_ms"], "plain_ms": flip0["plain_ms"],
+                "ms": flip0["device_ms"], "call_ms": flip0["kernel_ms"],
+                "plain_ms": flip0["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": flip0.get("library_ms")}
 

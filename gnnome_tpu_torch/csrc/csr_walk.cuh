@@ -17,6 +17,10 @@
 // cp.async (L1 bypassed) kStages - 1 slots ahead of the slot it uses, reads
 // back only what it copied (its own wait_group orders it), and adds into
 // its sums in slot order.
+//
+// K6 and K7 walk runs of consecutive edge slots with the same pieces: Team,
+// Vec / vld / vst, team_size, rows_16b, and SlotChunk over the two endpoint
+// arrays (u_idx as `perm`, v_idx as `nbr`).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +62,35 @@ __device__ __forceinline__ Vec<V> vld(const float* p) {
         for (int i = 0; i < V; ++i) r.a[i] = p[i];
     }
     return r;
+}
+
+// vld for data read once (an edge stream): cached in L2 only, evict first
+template <int V>
+__device__ __forceinline__ Vec<V> vld_stream(const float* p) {
+    Vec<V> r;
+    if constexpr (V == 4) {
+        const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+        r.a[0] = t.x;
+        r.a[1] = t.y;
+        r.a[2] = t.z;
+        r.a[3] = t.w;
+    } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) r.a[i] = __ldcs(p + i);
+    }
+    return r;
+}
+
+// vst for data written once (an edge stream), evict first
+template <int V>
+__device__ __forceinline__ void vst_stream(float* p, const Vec<V>& x) {
+    if constexpr (V == 4) {
+        __stcs(reinterpret_cast<float4*>(p),
+               make_float4(x.a[0], x.a[1], x.a[2], x.a[3]));
+    } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) __stcs(p + i, x.a[i]);
+    }
 }
 
 template <int V>

@@ -5,9 +5,11 @@
 // contract a multiply and an add into an FMA, and each result carries the
 // per-op rounding of the plain PyTorch versions in ops/kernels.py.
 //
-// Also the fixed-order reduction that K7 and K8 use for their global
-// float64 sums: each block writes one partial row, one more launch adds the
-// rows in a fixed order.  No atomics, so the sums are bitwise reproducible.
+// Also the fixed-order reductions of the global float64 sums: each block of
+// K7 and K8 adds its rows into one partial row (block_partials); K8 adds the
+// block rows in a fixed order by one more launch (reduce_partials), K7 in
+// its own last blocks (k7_gate_stats.cu).  No float atomics, so the sums
+// are bitwise reproducible.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,8 +19,8 @@ namespace gn {
 namespace {   // internal linkage: every kernel source includes this
 
 constexpr int kWarpsPerBlock = 8;
-// column-chunk width of the warp-per-row kernels (K7, csr_sum.cuh: 32 lanes
-// x FPL <= 4 features); wider rows take more chunks (blockIdx.y)
+// column-chunk width of the warp-per-row kernels (csr_sum.cuh: 32 lanes x
+// FPL <= 4 features); wider rows take more chunks (blockIdx.y)
 constexpr int kMaxWidth = 128;
 
 // Column chunks of width cw that cover d features.

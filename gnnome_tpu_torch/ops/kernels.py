@@ -127,14 +127,17 @@ def _library():
                 P, P, P,                     # b3e, e_in, bn
                 P, P, P, P]                  # e_out, sum_v, sum_u, stream
             lib.gn_k6_score_gate.restype = I
-            lib.gn_k6_score_gate.argtypes = [L, I, P, P, P, P, P, P]
-            lib.gn_k7_num_blocks.restype = I
-            lib.gn_k7_num_blocks.argtypes = [L]
+            lib.gn_k6_score_gate.argtypes = [
+                L, I, P, P,                  # n_edges, h, u_idx, v_idx
+                P, L, P, L,                  # puv, ldp, be, ldb
+                P, P]                        # z, stream
+            lib.gn_k7_scratch.restype = None
+            lib.gn_k7_scratch.argtypes = [L, I, P, P]
             lib.gn_k7_gate_stats.restype = I
             lib.gn_k7_gate_stats.argtypes = [
                 L, I, P, P,                  # n_edges, d, u_idx, v_idx
                 P, L, P, L,                  # bu, ldu, bv, ldv
-                P, P, P, P]                  # b3e, partials, out, stream
+                P, P, P, P, P]               # b3e, partials, tickets, out, stream
             lib.gn_k8_num_blocks.restype = I
             lib.gn_k8_num_blocks.argtypes = [I]
             lib.gn_k8_train_layer_bwd.restype = I
@@ -340,7 +343,9 @@ def k6_score_gate_plain(u_idx, v_idx, puv, be):
 
 
 def k6_score_gate(u_idx, v_idx, puv, be):
-    """K6, the fused score-predictor first layer (csrc/k6_score_gate.cu)."""
+    """K6, the fused score-predictor first layer (csrc/k6_score_gate.cu).
+    ``puv``/``be`` may be column slices (row-strided) of wider arrays.
+    Returns what ``k6_score_gate_plain`` returns, as a dense [E, H]."""
     if puv.device.type == "cpu":
         return k6_score_gate_plain(u_idx, v_idx, puv, be)
     if puv.device.type != "cuda":
@@ -348,15 +353,16 @@ def k6_score_gate(u_idx, v_idx, puv, be):
     dev = puv.device
     E, H = be.shape
     f32, i32 = torch.float32, torch.int32
-    _check("puv", puv, f32, (puv.shape[0], 2 * H), dev)
-    _check("be", be, f32, (E, H), dev)
+    _check("puv", puv, f32, (puv.shape[0], 2 * H), dev, rows_contiguous=False)
+    _check("be", be, f32, (E, H), dev, rows_contiguous=False)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, i32, (E,), dev)
-    z = torch.empty_like(be)
+    z = torch.empty((E, H), dtype=f32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gn_k6_score_gate(E, H, _ptr(u_idx), _ptr(v_idx), _ptr(puv),
-                                  _ptr(be), _ptr(z),
+                                  puv.stride(0), _ptr(be), be.stride(0),
+                                  _ptr(z),
                                   torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K6")
     k6_score_gate.launches += 1
@@ -371,6 +377,25 @@ def k7_gate_stats_plain(u_idx, v_idx, bu, bv, b3e):
     x = (bu.index_select(0, u_idx) + bv.index_select(0, v_idx)) + b3e
     x = x.double()
     return torch.cat([x.sum(0), (x * x).sum(0)])
+
+
+_K7_TICKETS: dict = {}     # (device index, stream) -> int32 tickets
+
+
+def _k7_scratch(lib, dev, stream: int, E: int, d: int):
+    """K7's scratch for E edges at width d on one stream: the number of
+    float64 partial-sum rows its launch writes, and at least as many int32
+    tickets as it takes, zero.  The tickets are kept from call to call
+    (each launch leaves them at zero), one set per stream, so launches on
+    two streams never share one."""
+    rows, n_tickets = ctypes.c_int(), ctypes.c_int()
+    lib.gn_k7_scratch(E, d, ctypes.byref(rows), ctypes.byref(n_tickets))
+    key = (dev.index, stream)
+    tickets = _K7_TICKETS.get(key)
+    if tickets is None or tickets.numel() < n_tickets.value:
+        tickets = _K7_TICKETS[key] = torch.zeros(
+            max(n_tickets.value, 64), dtype=torch.int32, device=dev)
+    return rows.value, tickets
 
 
 def k7_gate_stats(u_idx, v_idx, bu, bv, b3e):
@@ -390,14 +415,16 @@ def k7_gate_stats(u_idx, v_idx, bu, bv, b3e):
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
     lib = _library()
-    partials = torch.empty((lib.gn_k7_num_blocks(E), 2 * d),
-                           dtype=torch.float64, device=dev)
-    out = torch.empty(2 * d, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rows, tickets = _k7_scratch(lib, dev, stream, E, d)
+        partials = torch.empty((rows, 2 * d), dtype=torch.float64,
+                               device=dev)
+        out = torch.empty(2 * d, dtype=torch.float64, device=dev)
         rc = lib.gn_k7_gate_stats(
             E, d, _ptr(u_idx), _ptr(v_idx), _ptr(bu), bu.stride(0),
-            _ptr(bv), bv.stride(0), _ptr(b3e), _ptr(partials), _ptr(out),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(bv), bv.stride(0), _ptr(b3e), _ptr(partials),
+            _ptr(tickets), _ptr(out), stream)
     _raise_on(rc, "K7")
     k7_gate_stats.launches += 1
     return out

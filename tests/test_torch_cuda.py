@@ -8,11 +8,14 @@ without them; skip the JAX-importing conftest there:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-K3 and K8 run at d = 16, 20 (the one-float path: not divisible by 4), 64,
+K3, K6 and K8 run at d = 16, 20 (five float4 lanes of a team of 8), 64,
 128 and 192 (two column chunks), on the synthetic assembly graph and on a
 hub graph with an isolated node and a node of more than 64 in- and
-out-edges (its slot list crosses the 32-slot index chunks twice); K2, K7
-and K9 up to width 256.
+out-edges (its slot list crosses the 32-slot index chunks twice); K6 also
+on column slices of wider arrays, with row strides that keep the float4
+path and with odd ones that take the one-float path; K7 up to d = 256 on
+those graphs and on a graph of fewer edges than one index chunk, and on
+both of its paths bitwise equal; K2 and K9 up to width 256.
 
 Tolerances: e_out and z repeat the plain version's per-op rounding (only
 sigmoid's exp may differ by an ulp): ``atol=1e-5`` and exact; node sums add
@@ -67,9 +70,16 @@ def hub_graph(device):
     return g
 
 
+def tiny_graph(device):
+    """6 nodes, 5 edges: fewer than one chunk of slot indices (8, 16 or 32)
+    for every team, so most teams and blocks of K6 and K7 get no slot."""
+    return DeviceGraph.build([0, 1, 2, 4, 5], [1, 2, 3, 1, 0], 6, device)
+
+
 @pytest.fixture(scope="module")
 def graphs(graph, cuda):
-    return {"assembly": graph, "hub": hub_graph(cuda)}
+    return {"assembly": graph, "hub": hub_graph(cuda),
+            "tiny": tiny_graph(cuda)}
 
 
 WIDTHS = [16, 20, 64, 128, 192]
@@ -103,18 +113,33 @@ def test_k3_kernel_vs_plain(graphs, cuda, flip, d, which):
     assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
 
 
+# row padding of puv / be: none (dense), 8 floats (column slices whose row
+# strides keep the float4 path), 1 float (odd strides: the one-float path)
+K6_LAYOUTS = {"dense": 0, "strided": 8, "unaligned": 1}
+
+
+@pytest.mark.parametrize("layout", list(K6_LAYOUTS))
+@pytest.mark.parametrize("which", ["assembly", "hub"])
+@pytest.mark.parametrize("h", WIDTHS)
 @pytest.mark.parametrize("flip", [False, True])
-def test_k6_kernel_vs_plain(graph, cuda, flip):
+def test_k6_kernel_vs_plain(graphs, cuda, flip, h, which, layout):
+    graph = graphs[which]
     gen = torch.Generator(device=cuda).manual_seed(6)
-    puv = torch.randn(graph.n_nodes, 128, device=cuda, generator=gen)
-    be = torch.randn(graph.n_edges, 64, device=cuda, generator=gen)
+    pad = K6_LAYOUTS[layout]
+    puv = torch.randn(graph.n_nodes, 2 * h + pad, device=cuda,
+                      generator=gen)[:, :2 * h]
+    be = torch.randn(graph.n_edges, h + pad, device=cuda,
+                     generator=gen)[:, :h]
+    assert puv.is_contiguous() == be.is_contiguous() == (pad == 0)
     u, v, _, _ = graph.roles(flip)
     n0 = K.k6_score_gate.launches
     got = K.k6_score_gate(u, v, puv, be)
     assert K.k6_score_gate.launches == n0 + 1
     torch.cuda.synchronize()
+    assert got.shape == (graph.n_edges, h) and got.is_contiguous()
     torch.testing.assert_close(got, K.k6_score_gate_plain(u, v, puv, be),
                                rtol=0, atol=0)
+    assert torch.equal(got, K.k6_score_gate(u, v, puv, be))
 
 
 def test_wrapper_rejects_bad_inputs(graph, cuda):
@@ -126,6 +151,13 @@ def test_wrapper_rejects_bad_inputs(graph, cuda):
     with pytest.raises(ValueError):
         K.k6_score_gate(u, v, puv, torch.zeros(graph.n_edges + 1, 64,
                                                device=cuda))
+    with pytest.raises(ValueError):         # rows must be dense in features
+        K.k6_score_gate(u, v, puv, torch.zeros(64, graph.n_edges,
+                                               device=cuda).t())
+    # a row-strided be (a column slice) is taken
+    be = torch.ones(graph.n_edges, 72, device=cuda)[:, :64]
+    assert torch.equal(K.k6_score_gate(u, v, puv, be),
+                       torch.ones(graph.n_edges, 64, device=cuda))
 
 
 @pytest.mark.parametrize("d", [16, 64, 6])
@@ -189,9 +221,11 @@ def _close64(got, ref, terms):
     assert bool(((got - ref).abs() <= 1e-9 * terms + 1e-12).all())
 
 
-@pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
+@pytest.mark.parametrize("which", ["assembly", "hub", "tiny"])
+@pytest.mark.parametrize("d", [16, 20, 64, 128, 192, 256])
 @pytest.mark.parametrize("flip", [False, True])
-def test_k7_kernel_vs_plain(graph, cuda, flip, d):
+def test_k7_kernel_vs_plain(graphs, cuda, flip, d, which):
+    graph = graphs[which]
     a = _train_inputs(graph, cuda, d, seed=7)
     u, v, _, _ = graph.roles(flip)
     bu, bv = a["proj_u"][:, :d], a["proj_v"][:, :d]    # strided gate halves
@@ -202,6 +236,22 @@ def test_k7_kernel_vs_plain(graph, cuda, flip, d):
     x = (bu[u.long()] + bv[v.long()] + a["b3e"]).double()
     _close64(got, ref, torch.cat([x.abs().sum(0), (x * x).sum(0)]))
     assert torch.equal(got, K.k7_gate_stats(u, v, bu, bv, a["b3e"]))
+
+
+@pytest.mark.parametrize("d", [20, 64, 192])
+def test_k7_paths_bitwise_equal(graph, cuda, d):
+    """The order of K7's float64 adds is set by E and d alone: gate halves
+    with odd row strides (the one-float path) give the float4 path's sums
+    bit for bit."""
+    a = _train_inputs(graph, cuda, d, seed=17)
+    u, v, _, _ = graph.roles(False)
+    bu, bv = a["proj_u"][:, :d], a["proj_v"][:, :d]
+    odd = torch.empty(graph.n_nodes, 2 * d + 1, device=cuda)
+    odd[:, :d], odd[:, d + 1:] = bu, bv
+    bu1, bv1 = odd[:, :d], odd[:, d + 1:]
+    assert bu1.stride(0) % 4 and torch.equal(bu1, bu) and torch.equal(bv1, bv)
+    assert torch.equal(K.k7_gate_stats(u, v, bu, bv, a["b3e"]),
+                       K.k7_gate_stats(u, v, bu1, bv1, a["b3e"]))
 
 
 @pytest.mark.parametrize("which", ["assembly", "hub"])

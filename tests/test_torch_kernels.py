@@ -1,11 +1,12 @@
-"""K3 / K6 of gnnome_tpu_torch, and the training functions that carry K7,
-K8 and K9, against the JAX functions they replace.
+"""K3 / K6 / K7 of gnnome_tpu_torch, and the training functions that carry
+K7, K8 and K9, against the JAX functions they replace.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against ``gnnome_tpu.ops.message.fused_eval_edge_stage`` and
 ``fused_score_gate`` (Pallas kernels in interpret mode, windowed plans with an
-overflow tail) and against the JAX package's XLA edge-stage ops, at both
-flips and narrow width.  The JAX side runs on padded, packed, re-slotted
+overflow tail; K6 also on column slices), K7's against the Pallas
+``k7_gate_stats`` with the caller's overflow-tail sums, and against the JAX
+package's XLA edge-stage ops, at both flips and narrow width.  The JAX side runs on padded, packed, re-slotted
 arrays; the comparison is in host edge order (through each side's
 ``eid_of_slot``/``slot_of_eid``) and on the first N node rows.
 
@@ -160,6 +161,63 @@ def test_k6_plain_vs_pallas_fused_score_gate(graphs, flip):
     z = score_gate(dg, flip, torch.from_numpy(puv),
                    dg.edges_to_slots(torch.from_numpy(be)))
     np.testing.assert_allclose(dg.slots_to_edges(z).numpy(), ref, **EDGE_TOL)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_k6_plain_vs_pallas_on_column_slices(graphs, flip):
+    """``puv`` and ``be`` as column slices of wider arrays (row-strided, as
+    the card kernel takes them) against JAX ``fused_score_gate``."""
+    g, _, gt, dg = graphs
+    rng = np.random.default_rng(16)
+    puv_w = rng.standard_normal((g.num_nodes, 2 * D + 5)).astype(np.float32)
+    be_w = rng.standard_normal((g.num_edges, D + 3)).astype(np.float32)
+    puv, be = puv_w[:, :2 * D], be_w[:, :D]
+    z_p = jmsg.fused_score_gate(gt, flip, gt.pad_nodes(puv),
+                                jmsg.pack_edges(_jax_slots(gt, be)))
+    ref = _jax_host(gt, jmsg.unpack_edges(z_p), g.num_edges)
+    t_puv = torch.from_numpy(puv_w)[:, :2 * D]
+    t_be = dg.edges_to_slots(torch.from_numpy(be_w))[:, :D]
+    assert not t_puv.is_contiguous() and not t_be.is_contiguous()
+    z = score_gate(dg, flip, t_puv, t_be)
+    np.testing.assert_allclose(dg.slots_to_edges(z).numpy(), ref, **EDGE_TOL)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_k7_plain_vs_pallas_k7_gate_stats(graphs, flip):
+    """K7's plain version against the Pallas K7 (interpret mode) on the
+    windowed plan: its per-tile rows summed, plus the overflow-tail edges,
+    which the Pallas kernel leaves out, added as the JAX caller adds them
+    (gnnome_tpu/ops/message.py:417-430).  The JAX side sums in float32:
+    ``rtol=1e-5, atol=1e-5``."""
+    from gnnome_tpu.ops.pallas_kernels import k7_gate_stats
+
+    g, _, gt, dg = graphs
+    plan = gt.wplan_flip if flip else gt.wplan
+    assert plan.n_ovf > 0                                   # overflow tail
+    rng = np.random.default_rng(15)
+    n, E, d = g.num_nodes, g.num_edges, D
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    proj_u, proj_v, b3e = f(n, 2 * d), f(n, 2 * d), f(E, d)
+
+    pu, pv = gt.pad_nodes(proj_u), gt.pad_nodes(proj_v)
+    b3e_p = jmsg.pack_edges(_jax_slots(gt, b3e))
+    stats = k7_gate_stats(plan, pu, pv, b3e_p)
+    s = stats.reshape(plan.n_tiles, 8, 2 * d).sum(axis=0)[0]
+    u_idx, v_idx = (gt.dst, gt.src) if flip else (gt.src, gt.dst)
+    uo, vo = jmsg._ovf_idx(plan, u_idx), jmsg._ovf_idx(plan, v_idx)
+    x_o = ((jnp.take(pu, uo, axis=0)[:, :d] + jnp.take(pv, vo, axis=0)[:, :d])
+           + jmsg._ovf_take(plan, b3e_p, d))
+    xf_o = x_o * plan.ovf_mask
+    assert float(jnp.abs(xf_o).sum()) > 0                   # the tail counts
+    ref = np.concatenate([np.asarray(s[:d] + xf_o.sum(axis=0)),
+                          np.asarray(s[d:] + (xf_o * x_o).sum(axis=0))])
+
+    u, v, _, _ = dg.roles(flip)
+    t_u, t_v = torch.from_numpy(proj_u), torch.from_numpy(proj_v)
+    got = K.k7_gate_stats_plain(u, v, t_u[:, :d], t_v[:, :d],
+                                dg.edges_to_slots(torch.from_numpy(b3e)))
+    assert got.dtype == torch.float64 and got.shape == (2 * d,)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
 def test_device_graph_layout(graphs):
