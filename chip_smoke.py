@@ -33,11 +33,17 @@ seconds since the script started):
    and K9 the rate it gives their bound's bytes.  K9 must also be
    bit-equal to its plain version run on CPU copies of its inputs, and is
    timed on a copy of the golden graph whose node ids are relabelled by a
-   seeded random permutation.  Then K3, K6, K7 and K8 at d = 192 and K2,
-   K9 at width 256 on the same graph, and K6 at H = 20 on its one-float
-   path; K6 on column slices of wider arrays (row-strided), K9 on column
-   slices at H = 256 and 20 (float4 rows and one float per lane); each
-   against its plain version and bitwise reproducible.
+   seeded random permutation.  The dual symmetry pass's widths: K3, K7,
+   K8 at d = 128 and K6, K9 at H = 128 (flip=False), checked and timed
+   beside their bounds.  The one-sided K2 walk (``k2_side_sum``, the
+   zoo's node sums) at D = 64 and 192 into each side, timed beside
+   ``index_add_`` into one side, bit-equal to its plain version on CPU
+   copies (also at D = 3 and on column slices).  Then K3, K6, K7 and K8
+   at d = 192 and K2, K9 at width 256 on the same graph, and K6 at H = 20
+   on its one-float path; K6 on column slices of wider arrays
+   (row-strided), K9 on column slices at H = 256 and 20 (float4 rows and
+   one float per lane); each against its plain version and bitwise
+   reproducible.
 5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
@@ -46,12 +52,14 @@ seconds since the script started):
    layers), started from the shipped weights (batch norm) or seeded init
    weights (layer norm).  On the golden subgraph, one symmetry-loss step on
    the card against the port's CPU step (loss, every gradient, BN state);
-   on the whole golden graph as one unit, two steps from one state bitwise
-   equal (loss, logits, gradients, parameters after Adam), exactly 16 K7,
-   16 K3, 16 K8, 2 K6 and 2 K9 launches per step (layer norm: 16 K1 and 34
-   K2), no host synchronisation inside a step
-   (``torch.cuda.set_sync_debug_mode("error")``), the step time and peak
-   memory.
+   with batch norm the step runs both passes as one dual-width pass
+   (``forward_dual``), held also against the two sequential passes
+   (``forward_pair``) on the card; on the whole golden graph as one unit,
+   two steps from one state bitwise equal (loss, logits, gradients,
+   parameters after Adam), exactly 8 K7, 8 K3, 8 K8, 1 K6 and 1 K9
+   launches per step (layer norm: 16 K1 and 34 K2), no host
+   synchronisation inside a step (``torch.cuda.set_sync_debug_mode
+   ("error")``), the step time and peak memory.
 7. ``train``: ``gnnome_tpu_torch.cli train`` on the card with the default
    settings (the training path, counters set to 0 just before it): one
    epoch on the golden graph written as a training dataset (train = valid);
@@ -64,10 +72,20 @@ seconds since the script started):
    the overfit dataset (12 epochs, lr 1e-3), which must learn as phase 7's
    run must, then ``cli infer`` with the model it saved on phase 5's
    dataset, whose longest contig must be an exact substring of the genome.
+9. ``zoo``: GatedGCN, GCN, GAT and SAGE directed and GatedGCN undirected
+   on the golden graph at full width (d=64, 8 layers, 3 GAT heads, seeded
+   init weights): each eval forward card vs CPU, bitwise across card runs,
+   exactly its one-sided K2 walks per forward; each train step (plain
+   BCE) as phase 6 checks it, with its walks and one K2 per step.
+10. ``cli_zoo``: ``cli train --set model.model=gcn`` (two epochs) on phase
+   5's dataset, then ``cli infer`` with the model it saved, counters set
+   to 0 just before each.
 
 Then one JSON line with every kernel's numbers (``ms`` its device time,
-``call_ms`` its back-to-back call time; ``launches`` from the training path
-of phase 7, for K1 and K2 from that of phase 8; every path's in
+``call_ms`` its back-to-back call time, at the widths of its main path;
+``launches`` from the training path of phase 7 (K3, K6, K7, K8, K9 at the
+dual pass's width 128), for K1 and K2 from that of phase 8, for the
+one-sided walk from that of phase 10; every path's in
 ``launches_by_path``), the ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero at once.
@@ -119,6 +137,9 @@ AP_TOL = 1e-4
 # (two column chunks), payloads of 256 for K2 and K9, and K6 at H = 20 with
 # odd row strides (its one-float path)
 WIDE_D, WIDE_PAY, ODD_H = 192, 256, 20
+# the batch-norm train step's dual pass runs K3, K7, K8 at d = 2 x 64 and
+# K6, K9 at H = 2 x 64
+DUAL_D = 128
 # K7 / K8 global sums are float64 in another order than the plain version's:
 # within 1e-9 of the summed magnitudes.  K8's x is exact (the same
 # operations), d_eo within EDGE_ATOL (sigmoid), its node sums as K3's.
@@ -138,9 +159,11 @@ STEP_STATE_ATOL, STEP_STATE_RTOL = 1e-5, 1e-4
 OVERFIT_GRAPH = dict(n_reads=120, genome_len=10000, read_len=400, seed=12,
                      with_sequences=True)
 OVERFIT_LOSS_DROP, OVERFIT_MIN_AP = 0.9, 0.75
-TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 16, "k6_score_gate": 2,
-                       "k7_gate_stats": 16, "k8_train_layer_bwd": 16,
-                       "k9_aggregate": 2}
+# the batch-norm symmetry-loss step runs both passes as one dual-width pass
+# (forward_dual): per layer one K7 and one K3, their K8; one K6, its K9
+TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 8, "k6_score_gate": 1,
+                       "k7_gate_stats": 8, "k8_train_layer_bwd": 8,
+                       "k9_aggregate": 1}
 # the layer-norm and norm-free model runs K1 and K2 only: per forward one K1
 # and one K2 (the gated means) per layer; per symmetry-loss step two
 # forwards and their backwards (K2 for each K1, two row gathers for each
@@ -148,6 +171,16 @@ TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 16, "k6_score_gate": 2,
 UNFUSED_FORWARD_LAUNCHES = {"k1_gather_gate": 8, "k2_aggregate": 8}
 UNFUSED_STEP_LAUNCHES = {"k1_gather_gate": 16, "k2_aggregate": 34}
 UNFUSED_INIT_SEED = 7              # init_weights seed of those models
+# the model zoo: the four models directed and GatedGCN undirected, seeded
+# init weights.  Per eval forward the one-sided K2 walk runs once per
+# sum_into (GAT: two per layer, the softmax sums and the messages); per
+# step also once per gather_rows in the backward (GatedGCN two per layer,
+# GCN and SAGE one, GAT four), and one K2 for the predictor's gathers
+ZOO_MODELS = (("gatedgcn", True), ("gcn", True), ("gat", True),
+              ("sage", True), ("gatedgcn", False))
+ZOO_INIT_SEED = 7
+ZOO_FORWARD_SIDE_SUMS = {"gatedgcn": 8, "gcn": 8, "gat": 16, "sage": 8}
+ZOO_STEP_SIDE_SUMS = {"gatedgcn": 24, "gcn": 16, "gat": 48, "sage": 16}
 
 
 def expected_launches(**counts) -> dict:
@@ -244,6 +277,58 @@ def bound(nbytes: float, flops: float, flops64: float = 0.0):
     t_b = nbytes / HBM_BYTES_PER_S
     t_f = flops / F32_FLOPS_PER_S + flops64 / F64_FLOPS_PER_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+F4 = I4 = 4          # bytes of a float32, an int32
+
+
+def k3_cost(N: int, E: int, d: int):
+    """K3's least bytes and float32 operations: read proj_u/proj_v (used
+    columns), b3e, e_in, bn, u/v indices, both row-pointer arrays and one
+    slot permutation; write e_out and both [N, 2d] sums.  ~20 flops per
+    (edge, feature) over the two passes (gate 2, BN 4, relu 1, residual 1,
+    sigmoid ~3 twice, gated products and sums 3 twice)."""
+    return (F4 * (2 * N * 2 * d + 3 * E * d + 4 * d + 2 * N * 2 * d)
+            + I4 * (3 * E + 2 * (N + 1))), 20.0 * E * d, 0.0
+
+
+def k6_cost(N: int, E: int, H: int):
+    """Read puv, be, u/v indices; write z; add, add, max per element."""
+    return F4 * (N * 2 * H + 2 * E * H) + I4 * 2 * E, 3.0 * E * H, 0.0
+
+
+def k7_cost(N: int, E: int, d: int):
+    """Read the two [N, d] gate columns, b3e, u/v indices; write [2d] f64.
+    Per (edge, feature): 2 f32 adds (the gate); 3 f64 operations (sum x,
+    x*x, sum x*x)."""
+    return (F4 * (2 * N * d + E * d) + I4 * 2 * E + 8 * 2 * d,
+            2.0 * E * d, 3.0 * E * d)
+
+
+def k8_cost(N: int, E: int, d: int):
+    """Read d_sum_u/v, proj_u/v ([N, 2d] each), b3e, e_in, d_e_out, bn, u/v
+    indices, both row-pointer arrays and one slot permutation; write x,
+    d_eo, node_u/v ([N, 3d]) and [2d] f64.  Per (edge, feature) about 49
+    float32 operations over the two passes (gate 2, BN 4 twice, relu and
+    residual 2 twice, sigmoid ~4 twice, d_sigma 7, d_eo 4, d_y 1, three
+    sums of 2, 2 and 1 twice) and 3 float64 (sum d_y, d_y*x, its sum)."""
+    return (F4 * (4 * N * 2 * d + 3 * E * d + 4 * d + 2 * E * d
+                  + 2 * N * 3 * d) + 8 * 2 * d + I4 * (3 * E + 2 * (N + 1)),
+            49.0 * E * d, 3.0 * E * d)
+
+
+def k9_cost(N: int, E: int, H: int):
+    """Read pay, both row-pointer arrays and one slot permutation; write
+    the [N, 2H] sums; one add per (edge, feature) and endpoint."""
+    return (F4 * (E * H + 2 * N * H) + I4 * (E + 2 * (N + 1)),
+            2.0 * E * H, 0.0)
+
+
+def side_sum_cost(N: int, E: int, D: int, permuted: bool):
+    """The one-sided K2 walk: read pay, the row pointers and (src side) the
+    slot permutation; write [N, D]; one add per (edge, feature)."""
+    return (F4 * (E * D + N * D) + I4 * ((N + 1) + (E if permuted else 0)),
+            1.0 * E * D, 0.0)
 
 
 def golden_subgraph(g):
@@ -432,6 +517,87 @@ def check_k9(g, flip, pay, what):
     return diff, float((got - card).abs().max())
 
 
+def check_side_sum(idx, csr, pay, n_nodes: int, what: str) -> float:
+    """The one-sided K2 walk bit-equal to its plain version on CPU copies
+    (each node's rows added in slot order on both), and bitwise
+    reproducible; returns the max |diff| (0)."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    got = K.k2_side_sum(idx, csr, pay)
+    torch.cuda.synchronize()
+    cpu = K.k2_side_sum_plain(idx.cpu(), pay.cpu(), n_nodes)
+    diff = float((got.cpu() - cpu).abs().max())
+    check(diff == 0.0, f"K2 side sum {what}: diff {diff} vs CPU plain")
+    check(torch.equal(got, K.k2_side_sum(idx, csr, pay)),
+          f"K2 side sum {what}: bitwise reproducible")
+    return diff
+
+
+def dual_kernel_times(g, dd: int, randn, rand) -> dict:
+    """K3, K7, K8 at d = ``dd`` and K6, K9 at H = ``dd`` with flip=False
+    (the dual pass's widths and roles), each checked against its plain
+    version as at d = 64 and timed beside its bound."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    N, E = g.n_nodes, g.n_edges
+    u, v, v_csr, u_csr = g.roles(False)
+    proj = randn(N, 4 * dd)            # [u gate | u msg | v gate | v msg]
+    pu, pv = proj[:, :2 * dd], proj[:, 2 * dd:]
+    b3e, e_in, d_e_out = randn(E, dd), randn(E, dd), randn(E, dd)
+    bn = bn_rows(dd, randn, rand)
+    d_sum_u, d_sum_v = randn(N, 2 * dd), randn(N, 2 * dd)
+    puv, be = randn(N, 2 * dd), randn(E, dd)
+    pay = torch.relu(randn(E, dd))
+    k8_args = (d_sum_u, d_sum_v, pu, pv, b3e, e_in, d_e_out, bn)
+    runs = {
+        "k3_edge_stage": (
+            check_k3(g, False, pu, pv, b3e, e_in, bn, f"d={dd}")[2],
+            lambda: K.k3_edge_stage(u, v, v_csr, u_csr, pu, pv, b3e, e_in,
+                                    bn),
+            lambda: K.k3_edge_stage_plain(u, v, pu, pv, b3e, e_in, bn),
+            k3_cost(N, E, dd)),
+        "k7_gate_stats": (
+            check_k7(g, False, pu[:, :dd], pv[:, :dd], b3e, f"d={dd}")[0],
+            lambda: K.k7_gate_stats(u, v, pu[:, :dd], pv[:, :dd], b3e),
+            lambda: K.k7_gate_stats_plain(u, v, pu[:, :dd], pv[:, :dd], b3e),
+            k7_cost(N, E, dd)),
+        "k8_train_layer_bwd": (
+            check_k8(g, False, k8_args, f"d={dd}")[0],
+            lambda: K.k8_train_layer_bwd(u, v, v_csr, u_csr, *k8_args),
+            lambda: K.k8_train_layer_bwd_plain(u, v, *k8_args),
+            k8_cost(N, E, dd)),
+        "k6_score_gate": (
+            check_k6(g, False, puv, be, f"H={dd}"),
+            lambda: K.k6_score_gate(u, v, puv, be),
+            lambda: K.k6_score_gate_plain(u, v, puv, be),
+            k6_cost(N, E, dd)),
+        "k9_aggregate": (
+            check_k9(g, False, pay, f"H={dd}")[0],
+            lambda: K.k9_aggregate(u, v, v_csr, u_csr, pay),
+            lambda: K.k9_aggregate_plain(u, v, pay, N),
+            k9_cost(N, E, dd)),
+    }
+    out = {"width": dd}
+    for name, (diff, fn, plain, (nbytes, *ops)) in runs.items():
+        b_ms, b_by = bound(nbytes, *ops)
+        t = kernel_times(fn)
+        out[name] = {"max_abs_diff": diff, **t,
+                     "achieved_gbps": nbytes / t["device_ms"] / 1e6,
+                     "plain_ms": cuda_ms(plain), "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes}
+    # the one PyTorch call for K9's sums, as at H = 64
+    uv = torch.cat([u.long(), v.long() + N])
+    pay2 = torch.cat([pay, pay])
+    acc = torch.zeros(2 * N, dd, device=pay.device)
+    out["k9_aggregate"]["library_ms"] = cuda_ms(
+        lambda: acc.zero_().index_add_(0, uv, pay2))
+    return out
+
+
 def relabelled(graph, seed: int, dev):
     """``graph``'s ``DeviceGraph`` with its node ids relabelled by a seeded
     random permutation: the same degrees, no id locality."""
@@ -470,20 +636,13 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     b3e, e_in = randn(E, d), randn(E, d)
     bn = bn_rows(d, randn, rand)
     puv, be = randn(N, 2 * H), randn(E, H)
-    f4, i4 = 4, 4
     out = {}
 
-    # least time: read proj_u/proj_v (used columns), b3e, e_in, bn, u/v
-    # indices, both row-pointer arrays and one slot permutation; write
-    # e_out and both [N, 2d] sums.  ~20 flops per (edge, feature) over the
-    # two passes (gate 2, BN 4, relu 1, residual 1, sigmoid ~3 twice,
-    # gated products and sums 3 twice).
-    k3_bytes = (f4 * (2 * N * 2 * d + 3 * E * d + 4 * d + 2 * N * 2 * d)
-                + i4 * (3 * E + 2 * (N + 1)))
-    k3_bound, k3_by = bound(k3_bytes, 20.0 * E * d)
+    k3_bytes, *k3_ops = k3_cost(N, E, d)
+    k3_bound, k3_by = bound(k3_bytes, *k3_ops)
     # what the kernel moves: the bound's bytes, pass 2's re-read of e_out
     # and the second partner array (one per CSR)
-    k3_moved = k3_bytes + f4 * E * d + i4 * E
+    k3_moved = k3_bytes + F4 * E * d + I4 * E
     k3 = {"launches_per_forward": per_forward["k3_edge_stage"]}
     for flip in (False, True):
         args, diff_e, diff = check_k3(g, flip, proj_u, proj_v, b3e, e_in, bn,
@@ -501,9 +660,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                          "sums_rtol": SUM_RTOL})
     out["k3_edge_stage"] = k3
 
-    # read puv, be, u/v indices; write z; add, add, max per element
-    k6_bytes = f4 * (N * 2 * H + 2 * E * H) + i4 * 2 * E
-    k6_bound, k6_by = bound(k6_bytes, 3.0 * E * H)
+    k6_bytes, *k6_ops = k6_cost(N, E, H)
+    k6_bound, k6_by = bound(k6_bytes, *k6_ops)
     k6 = {"launches_per_forward": per_forward["k6_score_gate"]}
     # the same values as column slices of wider arrays (row-strided)
     puv_s = torch.zeros(N, 2 * H + 8, device=dev)[:, :2 * H].copy_(puv)
@@ -529,11 +687,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     tu, tv = proj4[:, :2 * d], proj4[:, 2 * d:]
     d_e_out, d_sum_u, d_sum_v = randn(E, d), randn(N, 2 * d), randn(N, 2 * d)
 
-    # read the two [N, d] gate columns, b3e, u/v indices; write [2d] f64.
-    # Per (edge, feature): 2 f32 adds (the gate); 3 f64 operations (sum x,
-    # x*x, sum x*x)
-    k7_bytes = f4 * (2 * N * d + E * d) + i4 * 2 * E + 8 * 2 * d
-    k7_bound, k7_by = bound(k7_bytes, 2.0 * E * d, 3.0 * E * d)
+    k7_bytes, *k7_ops = k7_cost(N, E, d)
+    k7_bound, k7_by = bound(k7_bytes, *k7_ops)
     k7 = {}
     bu, bv = tu[:, :d], tv[:, :d]
     for flip in (False, True):
@@ -560,19 +715,11 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                 u, v, v_csr, u_csr, *k8_args)),
             "plain_ms": cuda_ms(lambda: K.k8_train_layer_bwd_plain(
                 u, v, *k8_args))}
-    # read d_sum_u/v, proj_u/v ([N, 2d] each), b3e, e_in, d_e_out, bn, u/v
-    # indices, both row-pointer arrays and one slot permutation; write x,
-    # d_eo, node_u/v ([N, 3d]) and [2d] f64.  Per (edge, feature) about 49
-    # float32 operations over the two passes (gate 2, BN 4 twice, relu and
-    # residual 2 twice, sigmoid ~4 twice, d_sigma 7, d_eo 4, d_y 1, three
-    # sums of 2, 2 and 1 twice) and 3 float64 (sum d_y, d_y*x, its sum)
-    k8_bytes = (f4 * (4 * N * 2 * d + 3 * E * d + 4 * d + 2 * E * d
-                      + 2 * N * 3 * d) + 8 * 2 * d
-                + i4 * (3 * E + 2 * (N + 1)))
-    k8_bound, k8_by = bound(k8_bytes, 49.0 * E * d, 3.0 * E * d)
+    k8_bytes, *k8_ops = k8_cost(N, E, d)
+    k8_bound, k8_by = bound(k8_bytes, *k8_ops)
     # what the kernel moves: the bound's bytes, pass 2's re-reads of x,
     # d_eo and e_in, and the second partner array
-    k8_moved = k8_bytes + f4 * 3 * E * d + i4 * E
+    k8_moved = k8_bytes + F4 * 3 * E * d + I4 * E
     for flip in (False, True):
         r = k8[f"flip={flip}"]
         r["achieved_gbps"] = k8_moved / r["device_ms"] / 1e6
@@ -583,10 +730,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                          "sum64_rtol_of_magnitudes": SUM64_RTOL})
     out["k8_train_layer_bwd"] = k8
 
-    # read pay, both row-pointer arrays and one slot permutation; write the
-    # [N, 2H] sums; one add per (edge, feature) and endpoint
-    k9_bytes = f4 * (E * H + 2 * N * H) + i4 * (E + 2 * (N + 1))
-    k9_bound, k9_by = bound(k9_bytes, 2.0 * E * H)
+    k9_bytes, *k9_ops = k9_cost(N, E, H)
+    k9_bound, k9_by = bound(k9_bytes, *k9_ops)
     k9 = {}
     pay = torch.relu(randn(E, H))           # dz * (z > 0): about half zeros
     # the same degrees with node ids in random order: the two reads of a
@@ -639,7 +784,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                 u, v, proj_u, proj_v, b3e))}
     # read the used [N, 2d] halves of the projection, b3e, u/v indices;
     # write [E, 3d]; two adds per (edge, feature)
-    k1_bytes = f4 * (2 * N * 2 * d + E * d + E * 3 * d) + i4 * 2 * E
+    k1_bytes = F4 * (2 * N * 2 * d + E * d + E * 3 * d) + I4 * 2 * E
     k1_bound, k1_by = bound(k1_bytes, 2.0 * E * d)
     k1.update(bound_ms=k1_bound, bound_by=k1_by, bytes=k1_bytes,
               tolerance={"atol": EDGE_ATOL})
@@ -672,7 +817,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
                     0, uv, pay2))}
         # read both payloads, both row-pointer arrays and one slot
         # permutation; write the two [N, Dp] sums; one add per element
-        k2_bytes = f4 * (2 * E * width + 2 * N * width) + i4 * (E + 2 * (N + 1))
+        k2_bytes = F4 * (2 * E * width + 2 * N * width) + I4 * (E + 2 * (N + 1))
         k2_bound, k2_by = bound(k2_bytes, 2.0 * E * width)
         r.update(bound_ms=k2_bound, bound_by=k2_by, bytes=k2_bytes)
         k2[f"Dp={width}"] = r
@@ -680,6 +825,41 @@ def phase_kernels(seed: int, dev, per_forward: dict):
               library_call="torch.Tensor.index_add_ on [u; v+N], "
                            "[pay_u; pay_v]")
     out["k2_aggregate"] = k2
+
+    # ---- the dual symmetry pass: K3, K7, K8 at d = 2 * 64 and K6, K9 at
+    # H = 2 * 64, flip=False, as a batch-norm train step launches them
+    out["dual"] = dual_kernel_times(g, DUAL_D, randn, rand)
+
+    # ---- the one-sided K2 walk (the zoo's node sums) at D = 64 (GCN,
+    # SAGE) and 192 (GAT's messages) into each side, bit-equal to its
+    # plain version on CPU copies; its widths 3 (GAT's softmax sums) and a
+    # column slice checked too
+    _, _, by_dst, by_src = g.roles(False)
+    sides = {"dst": (g.dst, by_dst), "src": (g.src, by_src)}
+    side = {}
+    for width in (d, 3 * d):
+        pay = randn(E, width)
+        acc = torch.zeros(N, width, device=dev)
+        for name, (idx, csr) in sides.items():
+            diff = check_side_sum(idx, csr, pay, N, f"D={width} {name}")
+            check_side_sum(idx, csr, randn(E, width + 5)[:, :width], N,
+                           f"D={width} {name} strided")
+            nbytes, *ops = side_sum_cost(N, E, width, name == "src")
+            b_ms, b_by = bound(nbytes, *ops)
+            idx64 = idx.long()
+            t = kernel_times(lambda: K.k2_side_sum(idx, csr, pay))
+            side[f"D={width} side={name}"] = {
+                "max_abs_diff": diff, **t,
+                "achieved_gbps": nbytes / t["device_ms"] / 1e6,
+                "plain_ms": cuda_ms(lambda: K.k2_side_sum_plain(idx, pay, N)),
+                "library_ms": cuda_ms(lambda: acc.zero_().index_add_(
+                    0, idx64, pay)),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    for name, (idx, csr) in sides.items():
+        check_side_sum(idx, csr, randn(E, 3), N, f"D=3 {name}")
+    side.update(bitwise_reproducible=True, tolerance={"vs_cpu_plain_atol": 0.0},
+                library_call="torch.Tensor.index_add_ into one side")
+    out["k2_side_sum"] = side
 
     # ---- widths above 128: K3, K6, K7, K8 at d = WIDE_D (two column
     # chunks) and K2, K9 at WIDE_PAY, and K6 at ODD_H with odd row strides
@@ -734,36 +914,41 @@ def phase_kernels(seed: int, dev, per_forward: dict):
 
 
 def card_vs_cpu_forward(graph, new_model, dev, per_forward: dict,
-                        what: str):
+                        what: str, model_cfg=None):
     """Scores ``graph`` with ``new_model(device)`` on the CPU and on the
-    card: two card forwards bitwise equal, each launching the kernels of
-    ``per_forward`` that often and no other; finite logits within
-    LOGIT_ATOL + LOGIT_RTOL·|x| of the CPU run.  Returns (card logits, CPU
-    logits, a summary with the forward time and peak memory)."""
+    card (a zoo model of ``model_cfg`` on its processor graph): two card
+    forwards bitwise equal, each launching the kernels of ``per_forward``
+    that often and no other; finite logits within LOGIT_ATOL +
+    LOGIT_RTOL·|x| of the CPU run.  Returns (card logits, CPU logits, a
+    summary with the forward time and peak memory)."""
     import numpy as np
     import torch
 
     from gnnome_tpu_torch.models import edge_features, node_features
+    from gnnome_tpu_torch.models.zoo import processor_graph
     from gnnome_tpu_torch.ops import DeviceGraph
     from gnnome_tpu_torch.ops import kernels as K
 
     x_np, e_np = node_features(graph), edge_features(graph)
 
     def setup(device):
-        return (new_model(device), DeviceGraph.from_graph(graph, device),
-                torch.as_tensor(x_np, device=device),
+        g = DeviceGraph.from_graph(graph, device)
+        gp = (None if model_cfg is None else processor_graph(
+            model_cfg, graph.src, graph.dst, graph.num_nodes, device))
+        args = (g, torch.as_tensor(x_np, device=device),
                 torch.as_tensor(e_np, device=device))
+        return new_model(device), args + (() if gp is None else (gp,))
 
     with torch.inference_mode():
-        m_cpu, g_cpu, x_cpu, e_cpu = setup("cpu")
+        m_cpu, args_cpu = setup("cpu")
         t0 = time.perf_counter()
-        lo_cpu = m_cpu(g_cpu, x_cpu, e_cpu).reshape(-1).numpy()
+        lo_cpu = m_cpu(*args_cpu).reshape(-1).numpy()
         cpu_s = time.perf_counter() - t0
 
-        model, g, x, e = setup(dev)
-        model(g, x, e)                                      # warm-up
+        model, args = setup(dev)
+        model(*args)                                        # warm-up
         K.reset_launch_counts()
-        runs = [model(g, x, e).reshape(-1) for _ in range(2)]
+        runs = [model(*args).reshape(-1) for _ in range(2)]
         torch.cuda.synchronize()
         counts = K.launch_counts()
         check(counts == expected_launches(**{k: 2 * n for k, n
@@ -772,7 +957,7 @@ def card_vs_cpu_forward(graph, new_model, dev, per_forward: dict,
         check(torch.equal(runs[0], runs[1]),
               f"{what}: two card runs bitwise equal")
         torch.cuda.reset_peak_memory_stats(dev)
-        fwd_ms = cuda_ms(lambda: model(g, x, e), reps=5, n=5)
+        fwd_ms = cuda_ms(lambda: model(*args), reps=5, n=5)
         peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     lo = runs[0].cpu().numpy()
     check(bool(np.isfinite(lo).all()) and lo.shape == (graph.num_edges,),
@@ -890,95 +1075,118 @@ def _step_result(model, loss, logits):
                         for n, b in model.named_buffers()}}
 
 
-def phase_train_step(dev, normalization: str = "batch"):
-    """Full-width training steps, from the shipped weights (batch norm) or
-    seeded init weights (layer norm): card vs CPU on the golden subgraph;
-    bitwise reproducibility, launches, time and memory on the whole golden
-    graph."""
+def train_step_checks(dev, cfg, new_model, want: dict, what: str,
+                      dual_vs_pair: bool = False) -> dict:
+    """Full-width training steps of the model ``new_model(device)`` builds
+    for ``cfg``: one step on the card against the port's CPU step on the
+    golden subgraph (dropout 0; loss, every gradient, the buffers); with
+    ``dual_vs_pair`` the same card step (``forward_dual``) against the
+    symmetry loss of ``forward_pair`` on the card.  On the whole golden
+    graph as one unit (dropout 0.2): two steps from one state bitwise
+    equal, exactly the launches ``want`` per step, no host synchronisation
+    inside a step, the step time and peak memory.  Returns a summary."""
     import numpy as np
     import torch
 
-    from gnnome_tpu_torch.config import Config
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
-    from gnnome_tpu_torch.infer import load_model
-    from gnnome_tpu_torch.models import SymGatedGCN, load_model_weights
     from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.train.loss import symmetry_loss
     from gnnome_tpu_torch.train.step import (host_units, make_example,
                                              make_optimizer, train_step)
 
     golden = AssemblyGraph.load(GOLDEN)
-    if normalization == "batch":
-        params, state = load_model_weights(WEIGHTS)
-        weights = os.path.relpath(WEIGHTS, ROOT)
-        want = expected_launches(**TRAIN_STEP_LAUNCHES)
 
-        def new_model(cfg, device):
-            return load_model(params, state, cfg, device)
-    else:
-        weights = f"init_weights({UNFUSED_INIT_SEED})"
-        want = expected_launches(**UNFUSED_STEP_LAUNCHES)
-
-        def new_model(cfg, device):
-            model = SymGatedGCN.from_config(cfg.model)
-            return model.init_weights(UNFUSED_INIT_SEED).to(device)
-
-    def one_step(graph, cfg, device, seed):
+    def example(graph, device):
         (unit,) = host_units(graph, cfg, np.random.default_rng(0))
-        ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
-                          unit.src, unit.dst, unit.n_nodes, device)
-        model = new_model(cfg, device)
+        return make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
+                            unit.src, unit.dst, unit.n_nodes, device,
+                            cfg.model)
+
+    def one_step(graph, device, seed):
+        ex = example(graph, device)
+        model = new_model(device)
         opt = make_optimizer(model, cfg.train.lr)
         gen = torch.Generator(device=device).manual_seed(seed)
         loss, logits = train_step(model, opt, ex, 4.0, cfg, gen)
         return _step_result(model, loss, logits), (model, opt, ex, gen)
 
-    cfg = Config()
-    cfg.model.normalization = normalization
+    def pair_step(graph, device):
+        """The symmetry loss of the two sequential passes, backward."""
+        ex = example(graph, device)
+        model = new_model(device).train()
+        lo, lr = model.forward_pair(ex.g, ex.x, ex.x_rev, ex.e, None,
+                                    slot_io=True)
+        loss = symmetry_loss(lo[:, 0], lr[:, 0], ex.labels, 4.0,
+                             alpha=cfg.train.alpha)
+        loss.backward()
+        return _step_result(model, loss, lo[:, 0])
+
+    def compare(got, ref, against: str, logits: bool = False) -> dict:
+        """``got`` (card) vs ``ref``: loss, gradients, buffers (and
+        logits); returns the gradient differences."""
+        loss_r, loss_g = float(ref["loss"]), float(got["loss"])
+        check(abs(loss_g - loss_r) <= STEP_LOSS_RTOL * abs(loss_r),
+              f"{what}: step loss {loss_g} vs {against} {loss_r}")
+        grad_diff, grad_max, bad = {}, {}, []
+        for name, r in ref["grads"].items():
+            r = r.cpu()
+            delta = (got["grads"][name].cpu() - r).abs()
+            grad_diff[name] = float(delta.max())
+            grad_max[name] = float(r.abs().max())
+            if not bool((delta <= STEP_GRAD_ATOL
+                         + STEP_GRAD_RTOL * r.abs()).all()):
+                bad.append(name)
+        for name, r in ref["buffers"].items():
+            r, b_ = r.cpu(), got["buffers"][name].cpu()
+            if r.dtype.is_floating_point:
+                ok = bool(((b_ - r).abs() <= STEP_STATE_ATOL
+                           + STEP_STATE_RTOL * r.abs()).all())
+            else:
+                ok = torch.equal(b_, r)
+            check(ok, f"{what}: buffer {name} card vs {against}")
+        check(not bad, f"{what}: gradients card vs {against} outside "
+                       f"tolerance: {bad} "
+                       f"{[(grad_diff[n], grad_max[n]) for n in bad]}")
+        if logits:
+            dlo = (got["logits"].cpu() - ref["logits"].cpu()).abs()
+            check(bool((dlo <= LOGIT_ATOL + LOGIT_RTOL
+                        * ref["logits"].cpu().abs()).all()),
+                  f"{what}: logits vs {against} (max {float(dlo.max())})")
+        worst = max(grad_diff, key=grad_diff.get)
+        return {"loss": loss_g, f"loss_{against}": loss_r,
+                "max_grad_diff": {"tensor": worst, "abs": grad_diff[worst],
+                                  "tensor_max_abs": grad_max[worst]}}
+
     cfg.train.masking = False
     cfg.train.num_nodes_per_cluster = 10 ** 9         # one unit per graph
     cfg.model.dropout = 0.0                            # card vs CPU
     sub = golden_subgraph(golden)
     t0 = time.perf_counter()
-    ref, _ = one_step(sub, cfg, torch.device("cpu"), 0)
+    ref, _ = one_step(sub, torch.device("cpu"), 0)
     cpu_s = time.perf_counter() - t0
-    got, _ = one_step(sub, cfg, dev, 0)
-    loss_c, loss_g = float(ref["loss"]), float(got["loss"])
-    check(abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c),
-          f"step loss card {loss_g} vs CPU {loss_c}")
-    grad_diff, grad_max, bad = {}, {}, []
-    for name, r in ref["grads"].items():
-        delta = (got["grads"][name].cpu() - r).abs()
-        grad_diff[name] = float(delta.max())
-        grad_max[name] = float(r.abs().max())
-        if not bool((delta <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * r.abs()).all()):
-            bad.append(name)
-    worst = max(grad_diff, key=grad_diff.get)
-    for name, r in ref["buffers"].items():
-        b_ = got["buffers"][name].cpu()
-        if r.dtype.is_floating_point:
-            ok = bool(((b_ - r).abs() <= STEP_STATE_ATOL
-                       + STEP_STATE_RTOL * r.abs()).all())
-        else:
-            ok = torch.equal(b_, r)
-        check(ok, f"BN state {name} card vs CPU")
-    check(not bad, f"gradients card vs CPU outside tolerance: {bad} "
-                   f"{[(grad_diff[n], grad_max[n]) for n in bad]}")
+    got, _ = one_step(sub, dev, 0)
+    out = {"subgraph": {"nodes": sub.num_nodes, "edges": sub.num_edges},
+           "vs_cpu": compare(got, ref, "cpu"), "cpu_step_s": cpu_s}
+    if dual_vs_pair:
+        out["dual_vs_pair_on_card"] = compare(got, pair_step(sub, dev),
+                                              "pair", logits=True)
 
     # the whole golden graph as one unit, default dropout 0.2
     cfg.model.dropout = 0.2
     K.reset_launch_counts()
-    a, (model, opt, ex, gen) = one_step(golden, cfg, dev, 5)
+    a, (model, opt, ex, gen) = one_step(golden, dev, 5)
     per_step = K.launch_counts()
-    b, _ = one_step(golden, cfg, dev, 5)
-    check(per_step == want, f"launches per step {per_step}")
+    b, _ = one_step(golden, dev, 5)
+    check(per_step == want, f"{what}: launches per step {per_step}")
     for key in ("loss", "logits"):
-        check(torch.equal(a[key], b[key]), f"two card steps: {key} bitwise")
+        check(torch.equal(a[key], b[key]),
+              f"{what}: two card steps: {key} bitwise")
     for key in ("grads", "params", "buffers"):
         check(all(torch.equal(a[key][n], b[key][n]) for n in a[key]),
-              f"two card steps: {key} bitwise")
+              f"{what}: two card steps: {key} bitwise")
     check(bool(torch.isfinite(a["logits"]).all())
           and a["logits"].shape == (golden.num_edges,),
-          "finite logits of shape [E]")
+          f"{what}: finite logits of shape [E]")
     # the step never waits for the device: an operation that would
     # synchronise with the host raises in this mode
     torch.cuda.set_sync_debug_mode("error")
@@ -989,23 +1197,156 @@ def phase_train_step(dev, normalization: str = "batch"):
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = cuda_ms(lambda: train_step(model, opt, ex, 4.0, cfg, gen),
                       reps=5, n=3, warmup=2)
+    out.update(graph={"nodes": golden.num_nodes, "edges": golden.num_edges},
+               launches_per_step=per_step, bitwise_reproducible=True,
+               host_synchronisations_in_step=0, step_ms=step_ms,
+               max_memory_allocated_mb=torch.cuda.max_memory_allocated(dev)
+               / 2**20)
+    return out
+
+
+def phase_train_step(dev, normalization: str = "batch"):
+    """Full-width SymGatedGCN training steps (``train_step_checks``), from
+    the shipped weights (batch norm: the dual pass, also held against the
+    two sequential passes on the card) or seeded init weights (layer
+    norm)."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.infer import load_model
+    from gnnome_tpu_torch.models import SymGatedGCN, load_model_weights
+
+    cfg = Config()
+    cfg.model.normalization = normalization
+    if normalization == "batch":
+        params, state = load_model_weights(WEIGHTS)
+        weights = os.path.relpath(WEIGHTS, ROOT)
+        want = expected_launches(**TRAIN_STEP_LAUNCHES)
+
+        def new_model(device):
+            return load_model(params, state, cfg, device)
+    else:
+        weights = f"init_weights({UNFUSED_INIT_SEED})"
+        want = expected_launches(**UNFUSED_STEP_LAUNCHES)
+
+        def new_model(device):
+            model = SymGatedGCN.from_config(cfg.model)
+            return model.init_weights(UNFUSED_INIT_SEED).to(device)
+
+    out = train_step_checks(dev, cfg, new_model, want, normalization,
+                            dual_vs_pair=normalization == "batch")
     emit("train_step" if normalization == "batch"
-         else f"train_step_{normalization}", weights=weights,
-         subgraph={"nodes": sub.num_nodes, "edges": sub.num_edges},
-         loss_card=loss_g, loss_cpu=loss_c, cpu_step_s=cpu_s,
-         max_grad_diff={"tensor": worst, "abs": grad_diff[worst],
-                        "tensor_max_abs": grad_max[worst]},
-         max_grad_diff_by_tensor=grad_diff,
-         graph={"nodes": golden.num_nodes, "edges": golden.num_edges},
-         launches_per_step=per_step, bitwise_reproducible=True,
-         host_synchronisations_in_step=0,
-         step_ms=step_ms,
-         max_memory_allocated_mb=torch.cuda.max_memory_allocated(dev) / 2**20,
+         else f"train_step_{normalization}", weights=weights, **out,
          tolerance={"loss_rtol": STEP_LOSS_RTOL,
                     "grad_atol": STEP_GRAD_ATOL, "grad_rtol": STEP_GRAD_RTOL,
                     "state_atol": STEP_STATE_ATOL,
-                    "state_rtol": STEP_STATE_RTOL})
-    return per_step
+                    "state_rtol": STEP_STATE_RTOL,
+                    "logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL})
+    return out["launches_per_step"]
+
+
+def phase_zoo(dev):
+    """The model zoo on the golden graph at full width (d = 64, 8 layers,
+    3 GAT heads, seeded init weights): GatedGCN, GCN, GAT and SAGE
+    directed and GatedGCN undirected.  Each: the eval forward card vs CPU
+    (bitwise across card runs, exact launches), and ``train_step_checks``
+    (plain BCE)."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.models import get_model
+
+    graph = AssemblyGraph.load(GOLDEN)
+    out = {}
+    for name, directed in ZOO_MODELS:
+        cfg = Config()
+        cfg.model.model = name
+        cfg.model.directed = directed
+
+        def new_model(device, cfg=cfg):
+            return get_model(cfg.model).init_weights(ZOO_INIT_SEED).to(device)
+
+        what = f"{name} {'directed' if directed else 'undirected'}"
+        _, _, fwd = card_vs_cpu_forward(
+            graph, new_model, dev, {"k2_side_sum": ZOO_FORWARD_SIDE_SUMS[name]},
+            what, cfg.model)
+        step = train_step_checks(dev, cfg, new_model, expected_launches(
+            k2_side_sum=ZOO_STEP_SIDE_SUMS[name], k2_aggregate=1), what)
+        out[what.replace(" ", "_")] = {"forward": fwd, "train_step": step}
+    emit("zoo", graph={"nodes": graph.num_nodes, "edges": graph.num_edges},
+         weights=f"init_weights({ZOO_INIT_SEED})", d=64, layers=8,
+         gat_num_heads=3, **out,
+         tolerance={"logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL,
+                    "loss_rtol": STEP_LOSS_RTOL,
+                    "grad_atol": STEP_GRAD_ATOL, "grad_rtol": STEP_GRAD_RTOL})
+
+
+def phase_cli_zoo():
+    """A zoo model's paths: ``cli train --set model.model=gcn`` on phase 5's
+    synthetic dataset, then ``cli infer`` with the model it saved, each on
+    the card with the counters set to 0 just before it."""
+    import numpy as np
+
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.train.metrics import get_aps
+    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
+
+    root = os.path.join(WORK, "zoo")
+    shutil.rmtree(root, ignore_errors=True)
+    ds, genome = make_infer_dataset(os.path.join(root, "ds"))
+    gcn = ["--set", "model.model=gcn"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    model_path = cli.main(["train", "--train", ds, "--valid", ds, "--asm",
+                           "hifiasm", "--name", "gcn", *gcn,
+                           "--set", "train.num_epochs=2",
+                           "--set", f"paths.checkpoints_path={root}/ckpt",
+                           "--set", f"paths.models_path={root}/models"])
+    train_s = time.perf_counter() - t0
+    train_counts = K.launch_counts()
+    # U training units (16 side sums and one K2 each), V validation units
+    # (8 side sums each)
+    units = train_counts["k2_aggregate"]
+    v_units = (train_counts["k2_side_sum"] - 16 * units) // 8
+    check(units > 0 and v_units > 0 and train_counts == expected_launches(
+        k2_side_sum=16 * units + 8 * v_units, k2_aggregate=units),
+        f"gcn training launches {train_counts}")
+    with open(os.path.join(root, "ckpt", "log_gcn_seed1.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    check(len(log) == 2 and all(np.isfinite(r["train/loss"]) for r in log),
+          "gcn: two epochs logged, finite losses")
+
+    savedir = os.path.join(ds, "hifiasm")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = cli.main(["infer", "--data", ds, "--asm", "hifiasm",
+                        "--out", savedir, "--model", model_path, *gcn,
+                        "--set", f"decode.len_threshold={INFER_LEN_THRESHOLD}"])
+    wall_s = time.perf_counter() - t0
+    infer_counts = K.launch_counts()
+    check(summary["device"].startswith("cuda"), "gcn infer ran on the card")
+    check(infer_counts == expected_launches(
+        k2_side_sum=ZOO_FORWARD_SIDE_SUMS["gcn"]),
+        f"gcn eval-path launches {infer_counts}")
+    logits = np.load(os.path.join(savedir, "decode", "0_predicts.npy"))
+    graph = AssemblyGraph.load(os.path.join(ds, "hifiasm", "processed",
+                                            "0.npz"))
+    check(bool(np.isfinite(logits).all())
+          and logits.shape == (graph.num_edges,), "gcn: finite logits [E]")
+    contigs = list(read_fastx(os.path.join(savedir, "assembly",
+                                           "0_assembly.fasta")))
+    top = max(contigs, key=lambda c: len(c.seq), default=None)
+    emit("cli_zoo", model="gcn", train_wall_s=train_s, log=log,
+         train_launches=train_counts,
+         units={"train": units, "valid": v_units},
+         infer={"wall_s": wall_s, "timing_s": summary["timing"],
+                "launches": infer_counts,
+                "average_precision": get_aps(logits, graph.y),
+                "num_contigs": len(contigs),
+                "longest_contig": len(top.seq) if top else 0,
+                "exact_substring": bool(top) and (
+                    top.seq in genome
+                    or top.seq in reverse_complement(genome))})
+    return train_counts, infer_counts
 
 
 def phase_train():
@@ -1034,15 +1375,15 @@ def phase_train():
     model_path = cli.main([*common, "--set", "train.num_epochs=1"])
     wall_s = time.perf_counter() - t0
     counts = K.launch_counts()
-    # U training units (16 K7, 16 K3, 16 K8, 2 K6, 2 K9 each) and V
-    # validation units (16 K3, 2 K6 each)
-    units = counts["k9_aggregate"] // 2
-    check(units > 1 and counts["k7_gate_stats"] == 16 * units
-          and counts["k8_train_layer_bwd"] == 16 * units,
+    # U training units (8 K7, 8 K3, 8 K8, 1 K6, 1 K9 each) and V
+    # validation units (8 K3, 1 K6 each: the eval step's dual pass too)
+    units = counts["k9_aggregate"]
+    check(units > 1 and counts["k7_gate_stats"] == 8 * units
+          and counts["k8_train_layer_bwd"] == 8 * units,
           f"training launches {counts}")
-    v_units = (counts["k3_edge_stage"] - 16 * units) // 16
-    check(v_units > 1 and counts["k3_edge_stage"] == 16 * (units + v_units)
-          and counts["k6_score_gate"] == 2 * (units + v_units),
+    v_units = (counts["k3_edge_stage"] - 8 * units) // 8
+    check(v_units > 1 and counts["k3_edge_stage"] == 8 * (units + v_units)
+          and counts["k6_score_gate"] == units + v_units,
           f"validation launches {counts}")
     log = log_of("golden")
     check([r["epoch"] for r in log] == [0], "one epoch logged")
@@ -1183,37 +1524,58 @@ def main(argv=None) -> int:
     phase_train_step(dev, "layer")
     paths["train"] = phase_train()
     paths["train_layer"], paths["infer_layer"] = phase_cli_layer()
+    phase_zoo(dev)
+    paths["train_zoo"], paths["infer_zoo"] = phase_cli_zoo()
 
-    def row(name, src, replaces, main_path, timing=None):
-        r = timing or k[name]
-        flip0 = r["flip=False"]
+    def row(name, src, replaces, main_path, t, errs, width):
+        """The summary of kernel ``name``: times ``t`` at ``width`` (the
+        shapes its main path gives it), the largest error of ``errs``."""
         return {"name": name, "route": "cuda",
                 "source": f"gnnome_tpu_torch/csrc/{src}",
                 "replaces": f"gnnome_tpu/ops/pallas_kernels.py:{replaces}",
                 "launches": paths[main_path][name],
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
-                "max_abs_err": max(r[f]["max_abs_diff"]
-                                   for f in ("flip=False", "flip=True")),
-                "ms": flip0["device_ms"], "call_ms": flip0["kernel_ms"],
-                "plain_ms": flip0["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": flip0.get("library_ms")}
+                "max_abs_err": max(errs), "width": width,
+                "ms": t["device_ms"], "call_ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
 
-    # K2 at the gated mean's width Dp = 128; its error over both widths
-    k2 = row("k2_aggregate", "k2_aggregate.cu", 263, "train_layer",
-             k["k2_aggregate"]["Dp=128"])
-    k2["max_abs_err"] = max(
-        k["k2_aggregate"][w][f]["max_abs_diff"]
-        for w in ("Dp=128", "Dp=64") for f in ("flip=False", "flip=True"))
-    print(json.dumps({"kernels": [
-        row("k1_gather_gate", "k1_gather_gate.cu", 207, "train_layer"),
-        k2,
-        row("k3_edge_stage", "k3_edge_stage.cu", 355, "train"),
-        row("k6_score_gate", "k6_score_gate.cu", 709, "train"),
-        row("k7_gate_stats", "k7_gate_stats.cu", 457, "train"),
-        row("k8_train_layer_bwd", "k8_train_layer_bwd.cu", 604, "train"),
-        row("k9_aggregate", "k9_aggregate.cu", 771, "train"),
-    ]}), flush=True)
+    def flips(r):
+        return [r[f]["max_abs_diff"] for f in ("flip=False", "flip=True")]
+
+    def at_d64(name):
+        r = k[name]
+        return {**r["flip=False"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"]}
+
+    # K1 and K2 at the layer-norm model's widths (K2 at the gated mean's
+    # Dp = 128); K3, K6, K7, K8 and K9 at the dual pass's d = H = 128 (the
+    # training path; the eval path runs K3 and K6 at 64, in the kernels
+    # phase line); the one-sided walk at D = 64 into dst (GCN's sums)
+    k2 = k["k2_aggregate"]
+    side = k["k2_side_sum"]
+    rows = [
+        row("k1_gather_gate", "k1_gather_gate.cu", 207, "train_layer",
+            at_d64("k1_gather_gate"), flips(k["k1_gather_gate"]), 64),
+        row("k2_aggregate", "k2_aggregate.cu", 263, "train_layer",
+            {**k2["Dp=128"]["flip=False"], **{
+                x: k2["Dp=128"][x] for x in ("bound_ms", "bound_by")}},
+            flips(k2["Dp=128"]) + flips(k2["Dp=64"]), 128),
+        row("k2_side_sum", "k2_aggregate.cu", 263, "train_zoo",
+            side["D=64 side=dst"],
+            [r["max_abs_diff"] for r in side.values()
+             if isinstance(r, dict) and "max_abs_diff" in r], 64),
+    ]
+    for name, src, line in (("k3_edge_stage", "k3_edge_stage.cu", 355),
+                            ("k6_score_gate", "k6_score_gate.cu", 709),
+                            ("k7_gate_stats", "k7_gate_stats.cu", 457),
+                            ("k8_train_layer_bwd", "k8_train_layer_bwd.cu",
+                             604),
+                            ("k9_aggregate", "k9_aggregate.cu", 771)):
+        rows.append(row(name, src, line, "train", k["dual"][name],
+                        flips(k[name]) + [k["dual"][name]["max_abs_diff"]],
+                        DUAL_D))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

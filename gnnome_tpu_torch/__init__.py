@@ -10,9 +10,12 @@ Sub-packages (names mirror ``gnnome_tpu``)
 ------------------------------------------
 graphs    CPU-side graph containers, ground-truth labels, overlap similarity,
           synthetic graphs.
-ops       device graph (dst-sorted slots + CSR both ways), K3/K6 kernels and
-          their plain versions, message-passing ops.
-models    SymGatedGCN as an ``nn.Module`` (eval forward), features, weights.
+ops       device graph (dst-sorted slots + CSR both ways), the CUDA kernels
+          and their plain versions, message-passing ops.
+models    SymGatedGCN and the zoo (GatedGCN, GCN, GAT, SAGE) as
+          ``nn.Module``s (eval, training, the dual symmetry pass),
+          features, weights.
+train     training loop, steps, losses, metrics.
 decode    greedy path decoding over CSR + assembly FASTA emission.
 data      dataset directory layout.
 utils     FASTA/Q I/O, seeding, timing.

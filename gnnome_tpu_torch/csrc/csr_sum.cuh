@@ -1,5 +1,5 @@
-// Sorted-segment node sums of K2 (the unfused path's aggregation), one
-// launch per endpoint side.  (K9 walks both sides of a node in one launch:
+// Sorted-segment node sums of K2 (the unfused path's aggregation, and the
+// model zoo's one-sided sums), one launch per endpoint side.  (K9 walks both sides of a node in one launch:
 // csrc/k9_aggregate.cu.)
 //
 // out[i] = sum over k in [ptr[i], ptr[i+1]) of pay[row(k)], row(k) =

@@ -12,6 +12,16 @@
 // the adjoint of K1 (Dp = 2d) and the adjoint of the predictor's endpoint
 // gathers (Dp = d).  Any Dp: rows wider than 128 take several column chunks.
 //
+// gn_k2_side_sum is one side of the same walk as its own entry:
+//
+//   out[i] = sum over slots s with side(s) = i of pay[s]       ([N, D])
+//
+// with side = dst (identity slot list) or src (the src-sorted permutation).
+// It carries the model zoo's reductions into nodes (the forward of
+// ops/message.py sum_into, the adjoint of gather_rows): GCN and SAGE node
+// sums (D = d), GAT's softmax denominators (D = heads) and messages
+// (D = heads x d), GatedGCN's gated sums (D = 2d).
+//
 // Bound on the card: bytes.  It must read both payloads once (2 x Dp floats
 // per edge) and write the two [N, Dp] sums; one add per element.
 //
@@ -39,4 +49,12 @@ extern "C" int gn_k2_aggregate(int n_nodes, int width, const int* v_ptr,
     if (rc != (int)cudaSuccess) return rc;
     return gn::launch_csr_row_sum(n_nodes, width, u_ptr, u_perm, pay_u, ldu,
                                   sum_u, st);
+}
+
+extern "C" int gn_k2_side_sum(int n_nodes, int width, const int* ptr,
+                              const int* perm, const float* pay, int64_t ld,
+                              float* out, void* stream) {
+    if (n_nodes <= 0) return (int)cudaSuccess;
+    return gn::launch_csr_row_sum(n_nodes, width, ptr, perm, pay, ld, out,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,8 @@
 The PyTorch counterpart of ``gnnome_tpu/infer.py`` (reference
 ``inference.py:364-501``): the same logits cache (``{idx}_predicts.npy``),
 per-graph decode checkpoints, timing phases and ``peak_rss_mb``.  Scoring
-runs the SymGatedGCN eval forward on ``compute.device`` (``cuda`` by
+runs the eval forward of the model ``model.model`` names (the SymGatedGCN
+or a zoo model, on its processor graph) on ``compute.device`` (``cuda`` by
 default: it raises when no GPU is present; ``cpu`` runs the kernels' plain
 versions).  Decoding runs on the host through the C++ library.
 """
@@ -20,31 +21,36 @@ from .config import Config, resolve_device
 from .data.dataset import dataset_for
 from .decode import decode_greedy, walks_to_contigs, save_assembly, quick_evaluation
 from .decode.assembly import write_report
-from .models import SymGatedGCN, edge_features, node_features
+from .models import edge_features, node_features
 from .models.checkpoint import load_model_weights
-from .models.convert import module_state_from_numpy
+from .models.convert import load_model_pytrees
+from .models.zoo import get_model, processor_graph
 from .ops import DeviceGraph
 from .utils.seed import set_seed
 from .utils.timing import Timer
 
 
-def load_model(params, state, cfg: Config, device) -> SymGatedGCN:
-    """The eval-mode ``SymGatedGCN`` for ``cfg.model`` with the numpy
-    pytree weights ``(params, state)``, on ``device``."""
-    model = SymGatedGCN.from_config(cfg.model)
-    model.load_state_dict(module_state_from_numpy(params, state,
-                                                  cfg.model.normalization))
+def load_model(params, state, cfg: Config, device) -> torch.nn.Module:
+    """The eval-mode model ``cfg.model`` names (``models.zoo.get_model``)
+    with the numpy pytree weights ``(params, state)``, on ``device``."""
+    model = get_model(cfg.model)
+    load_model_pytrees(model, params, state)
     return model.to(device)
 
 
 @torch.inference_mode()
-def score_model(model: SymGatedGCN, graph, cfg: Config, device) -> np.ndarray:
-    """Edge logits [E] (host edge order) of ``graph`` under ``model``."""
+def score_model(model: torch.nn.Module, graph, cfg: Config,
+                device) -> np.ndarray:
+    """Edge logits [E] (host edge order) of ``graph`` under ``model``; a
+    zoo model's processor runs on its transformed graph."""
     g = DeviceGraph.from_graph(graph, device)
     x = torch.as_tensor(node_features(graph), device=device)
     e = torch.as_tensor(edge_features(graph, cfg.data.use_similarities),
                         device=device)
-    return model(g, x, e).reshape(-1).cpu().numpy()
+    g_proc = processor_graph(cfg.model, graph.src, graph.dst,
+                             graph.num_nodes, device)
+    args = (g, x, e) if g_proc is None else (g, x, e, g_proc)
+    return model(*args).reshape(-1).cpu().numpy()
 
 
 def score_graph(graph, params, state, cfg: Config | None = None) -> np.ndarray:

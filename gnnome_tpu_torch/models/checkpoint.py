@@ -62,7 +62,8 @@ def load_model_weights(path: str):
         from .convert import numpy_from_module_state
         return numpy_from_module_state(path)
     trees = load_pytrees(path)
-    return trees["params"], trees["state"]
+    # a stateless model (GCN, GAT, SAGE) saves state {}: no key at all
+    return trees["params"], trees.get("state", {})
 
 
 def save_model_weights(path: str, params, state) -> None:

@@ -1,5 +1,7 @@
 """Weight conversion between the numpy pytrees of ``weights/weights.npz`` and
-the ``nn.Module`` state dict of ``models/sym_gated_gcn.SymGatedGCN``.
+the ``nn.Module`` state dict of ``models/sym_gated_gcn.SymGatedGCN`` and of
+the zoo models (``models/zoo.py``; ``pytrees_from_model`` and
+``load_model_pytrees`` take any of them).
 
 The module's state-dict names are the reference SymGatedGCNModel's
 (weights/weights.pt; layer shapes per models/full_graph.py:14-19), so a
@@ -22,6 +24,21 @@ as ``BatchNorm1d`` (batch), as ``LayerNorm`` weight and bias (layer: the
 running statistics are dropped), or not at all (none).  Going back, the
 leaves a module lacks are written with the JAX init values: scale 1,
 bias 0, mean 0, var 1, count 0.
+
+The zoo models' pytrees (JAX ``gated_gcn_init``, ``gcn_init``,
+``gat_init``, ``sage_init``) share the encoders and the predictor; per
+model the stacked ``gnn`` leaves map as
+
+  gatedgcn  gnn.convs.{i}.{A_1,A_2,B_1,B_2,B_3}  <-> gnn/{A1,A2,B1,B2,B3}
+            gnn.convs.{i}.bn_{h,e}              <-> gnn/bn_* and state/gnn/bn_*
+  gcn       gnn.convs.{i}                       <-> gnn/{w,b}
+  gat       gnn.convs.{i}.fc.weight [H*d, d]    <-> gnn/fc [d, H*d]
+            gnn.convs.{i}.{attn_l,attn_r,bias}  <-> gnn/{attn_l,attn_r,bias}
+            proj.{i}                            <-> proj/{w,b}
+  sage      gnn.convs.{i}.{fc_self,fc_neigh}    <-> gnn/{fc_self,fc_neigh}
+
+and only the GatedGCN has a state (its BatchNorm statistics); the others'
+is ``{}``, which an npz stores as no key at all.
 """
 from __future__ import annotations
 
@@ -29,6 +46,8 @@ import numpy as np
 
 _LAYER_LINEARS = (("A1", "A_1"), ("A2", "A_2"), ("A3", "A_3"),
                   ("B1", "B_1"), ("B2", "B_2"), ("B3", "B_3"))
+_GATED_LINEARS = (("A1", "A_1"), ("A2", "A_2"), ("B1", "B_1"), ("B2", "B_2"),
+                  ("B3", "B_3"))
 
 
 def _lin(sd: dict, prefix: str) -> dict:
@@ -77,68 +96,122 @@ def _norm_state(sd: dict, prefix: str, d: int) -> dict:
                                 np.int64)}
 
 
-def numpy_from_module_state(path_or_sd) -> tuple[dict, dict]:
-    """(params, state) numpy pytrees from a module state dict (of any
-    normalisation) or a reference ``.pt`` checkpoint path."""
-    sd = _load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else {
-        k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
-        for k, v in path_or_sd.items()}
+def _module_sd(path_or_sd) -> dict:
+    if isinstance(path_or_sd, str):
+        return _load_state_dict(path_or_sd)
+    return {k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                else np.asarray(v)) for k, v in path_or_sd.items()}
 
-    n_layers = 1 + max(int(k.split(".")[2]) for k in sd
-                       if k.startswith("gnn.convs."))
+
+def _n_layers(sd: dict) -> int:
+    return 1 + max(int(k.split(".")[2]) for k in sd
+                   if k.startswith("gnn.convs."))
+
+
+def _shared_numpy(sd: dict, **processor) -> dict:
+    """The params pytree: the encoders and predictor every model shares,
+    around the ``processor`` entries (``gnn``, GAT's ``proj``), in the
+    JAX ``*_init`` key order."""
+    return {
+        "node_encoder": {"lin1": _lin(sd, "linear1_node"),
+                         "lin2": _lin(sd, "linear2_node")},
+        "edge_encoder": {"lin1": _lin(sd, "linear1_edge"),
+                         "lin2": _lin(sd, "linear2_edge")},
+        **processor,
+        "predictor": {w: _lin(sd, f"predictor.{w}") for w in ("W1", "W2", "W3")},
+    }
+
+
+def _gated_numpy(sd: dict, linears) -> tuple[dict, dict]:
+    """(params, state) of a (Sym)GatedGCN state dict with layer linears
+    ``linears`` (pytree name, module name)."""
+    n_layers = _n_layers(sd)
     d = np.asarray(sd["gnn.convs.0.A_1.weight"]).shape[0]
 
     def stack(fn):
         return _stack([fn(i) for i in range(n_layers)])
 
-    params = {
-        "node_encoder": {"lin1": _lin(sd, "linear1_node"),
-                         "lin2": _lin(sd, "linear2_node")},
-        "edge_encoder": {"lin1": _lin(sd, "linear1_edge"),
-                         "lin2": _lin(sd, "linear2_edge")},
-        "gnn": stack(lambda i: {
-            **{name: _lin(sd, f"gnn.convs.{i}.{t}")
-               for name, t in _LAYER_LINEARS},
-            **{bn: _norm_params(sd, f"gnn.convs.{i}.{bn}", d)
-               for bn in ("bn_h", "bn_e")},
-        }),
-        "predictor": {w: _lin(sd, f"predictor.{w}") for w in ("W1", "W2", "W3")},
-    }
-    state = {
-        "gnn": stack(lambda i: {
-            bn: _norm_state(sd, f"gnn.convs.{i}.{bn}", d)
-            for bn in ("bn_h", "bn_e")
-        }),
-    }
+    params = _shared_numpy(sd, gnn=stack(lambda i: {
+        **{name: _lin(sd, f"gnn.convs.{i}.{t}") for name, t in linears},
+        **{bn: _norm_params(sd, f"gnn.convs.{i}.{bn}", d)
+           for bn in ("bn_h", "bn_e")},
+    }))
+    state = {"gnn": stack(lambda i: {
+        bn: _norm_state(sd, f"gnn.convs.{i}.{bn}", d)
+        for bn in ("bn_h", "bn_e")})}
     return params, state
 
 
-def module_state_from_numpy(params: dict, state: dict,
-                            normalization: str = "batch") -> dict:
-    """``nn.Module`` state dict (CPU tensors) from the numpy pytrees for a
-    model of ``normalization``: linear weights transposed to ``[out, in]``,
-    stacked GNN leaves split per layer, ``bn_*`` leaves kept as the module
-    has them."""
+def numpy_from_module_state(path_or_sd) -> tuple[dict, dict]:
+    """(params, state) numpy pytrees from a SymGatedGCN state dict (of any
+    normalisation) or a reference ``.pt`` checkpoint path."""
+    return _gated_numpy(_module_sd(path_or_sd), _LAYER_LINEARS)
+
+
+def zoo_numpy_from_module_state(kind: str, sd) -> tuple[dict, dict]:
+    """(params, state) numpy pytrees, in the JAX package's layout, from the
+    state dict of the zoo model ``kind`` (see the module docstring)."""
+    sd = _module_sd(sd)
+    if kind == "gatedgcn":
+        return _gated_numpy(sd, _GATED_LINEARS)
+    n_layers = _n_layers(sd)
+
+    def stack(fn):
+        return _stack([fn(i) for i in range(n_layers)])
+
+    if kind == "gcn":
+        return _shared_numpy(
+            sd, gnn=stack(lambda i: _lin(sd, f"gnn.convs.{i}"))), {}
+    if kind == "gat":
+        def f32(k):
+            return np.asarray(sd[k], dtype=np.float32)
+        return _shared_numpy(sd, gnn=stack(lambda i: {
+            "fc": f32(f"gnn.convs.{i}.fc.weight").T.copy(),
+            **{k: f32(f"gnn.convs.{i}.{k}")
+               for k in ("attn_l", "attn_r", "bias")}}),
+            proj=stack(lambda i: _lin(sd, f"proj.{i}"))), {}
+    if kind == "sage":
+        return _shared_numpy(sd, gnn=stack(lambda i: {
+            k: _lin(sd, f"gnn.convs.{i}.{k}")
+            for k in ("fc_self", "fc_neigh")})), {}
+    raise ValueError(f"not a zoo model: {kind!r}")
+
+
+def _put_lin(sd: dict, prefix: str, p: dict) -> None:
     import torch
 
+    sd[f"{prefix}.weight"] = torch.from_numpy(np.asarray(p["w"]).T.copy())
+    sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(p["b"]).copy())
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked pytree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _shared_module_state(params: dict) -> dict:
     sd = {}
+    _put_lin(sd, "linear1_node", params["node_encoder"]["lin1"])
+    _put_lin(sd, "linear2_node", params["node_encoder"]["lin2"])
+    _put_lin(sd, "linear1_edge", params["edge_encoder"]["lin1"])
+    _put_lin(sd, "linear2_edge", params["edge_encoder"]["lin2"])
+    for w in ("W1", "W2", "W3"):
+        _put_lin(sd, f"predictor.{w}", params["predictor"][w])
+    return sd
 
-    def put_lin(prefix, p):
-        sd[f"{prefix}.weight"] = torch.from_numpy(np.asarray(p["w"]).T.copy())
-        sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(p["b"]).copy())
 
-    put_lin("linear1_node", params["node_encoder"]["lin1"])
-    put_lin("linear2_node", params["node_encoder"]["lin2"])
-    put_lin("linear1_edge", params["edge_encoder"]["lin1"])
-    put_lin("linear2_edge", params["edge_encoder"]["lin2"])
+def _gated_module_state(params: dict, state: dict, normalization: str,
+                        linears) -> dict:
+    import torch
 
+    sd = _shared_module_state(params)
     gnn = params["gnn"]
     n_layers = np.asarray(gnn["A1"]["w"]).shape[0]
     for i in range(n_layers):
-        for name, t in _LAYER_LINEARS:
-            put_lin(f"gnn.convs.{i}.{t}",
-                    {"w": np.asarray(gnn[name]["w"])[i],
-                     "b": np.asarray(gnn[name]["b"])[i]})
+        for name, t in linears:
+            _put_lin(sd, f"gnn.convs.{i}.{t}", _layer(gnn[name], i))
         if normalization == "none":
             continue
         for bn in ("bn_h", "bn_e"):
@@ -155,6 +228,65 @@ def module_state_from_numpy(params: dict, state: dict,
                 np.asarray(st["var"])[i].copy())
             sd[f"gnn.convs.{i}.{bn}.num_batches_tracked"] = torch.tensor(
                 int(np.asarray(st["count"])[i]))
-    for w in ("W1", "W2", "W3"):
-        put_lin(f"predictor.{w}", params["predictor"][w])
     return sd
+
+
+def module_state_from_numpy(params: dict, state: dict,
+                            normalization: str = "batch") -> dict:
+    """``nn.Module`` state dict (CPU tensors) from the numpy pytrees for a
+    SymGatedGCN of ``normalization``: linear weights transposed to
+    ``[out, in]``, stacked GNN leaves split per layer, ``bn_*`` leaves kept
+    as the module has them."""
+    return _gated_module_state(params, state, normalization, _LAYER_LINEARS)
+
+
+def zoo_module_state_from_numpy(kind: str, params: dict, state: dict,
+                                normalization: str = "batch") -> dict:
+    """``nn.Module`` state dict (CPU tensors) of the zoo model ``kind``
+    from the JAX package's numpy pytrees (see the module docstring)."""
+    import torch
+
+    if kind == "gatedgcn":
+        return _gated_module_state(params, state, normalization,
+                                   _GATED_LINEARS)
+    sd = _shared_module_state(params)
+    gnn = params["gnn"]
+    first = gnn
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    for i in range(np.asarray(first).shape[0]):
+        p = _layer(gnn, i)
+        if kind == "gcn":
+            _put_lin(sd, f"gnn.convs.{i}", p)
+        elif kind == "gat":
+            sd[f"gnn.convs.{i}.fc.weight"] = torch.from_numpy(
+                np.asarray(p["fc"], np.float32).T.copy())
+            for k in ("attn_l", "attn_r", "bias"):
+                sd[f"gnn.convs.{i}.{k}"] = torch.from_numpy(
+                    np.asarray(p[k], np.float32).copy())
+            _put_lin(sd, f"proj.{i}", _layer(params["proj"], i))
+        elif kind == "sage":
+            for k in ("fc_self", "fc_neigh"):
+                _put_lin(sd, f"gnn.convs.{i}.{k}", p[k])
+        else:
+            raise ValueError(f"not a zoo model: {kind!r}")
+    return sd
+
+
+def pytrees_from_model(model) -> tuple[dict, dict]:
+    """(params, state) numpy pytrees of any model of ``models`` (the
+    SymGatedGCN or a zoo model), in the JAX package's layout."""
+    if model.kind == "sym_gatedgcn":
+        return numpy_from_module_state(model.state_dict())
+    return zoo_numpy_from_module_state(model.kind, model.state_dict())
+
+
+def load_model_pytrees(model, params: dict, state: dict) -> None:
+    """Load the JAX-layout numpy pytrees into ``model`` (the SymGatedGCN or
+    a zoo model), in place."""
+    if model.kind == "sym_gatedgcn":
+        sd = module_state_from_numpy(params, state, model.normalization)
+    else:
+        sd = zoo_module_state_from_numpy(model.kind, params, state,
+                                         model.normalization)
+    model.load_state_dict(sd)

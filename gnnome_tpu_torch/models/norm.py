@@ -10,6 +10,12 @@ BatchNorm:
   momentum 0.1, ``repeat_updates`` times, and advance
   ``num_batches_tracked`` as often (the JAX ``count``).
 
+``batch_norm_dual`` (norm.py:71-108) runs one BatchNorm module over the
+feature-concatenated ``[n, 2d]`` halves of the two symmetry-loss passes:
+each half normalised with its own statistics, the running statistics
+updated as two forwards one after the other would (the org half, then the
+flip half).
+
 LayerNorm (norm.py:111-115) is the same in eval and training; ``none``
 (norm.py:118-128) is the identity.
 """
@@ -41,17 +47,22 @@ def batch_norm_rows(bn: nn.BatchNorm1d) -> torch.Tensor:
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor,
                          unbiased_var: torch.Tensor,
-                         repeat_updates: int = 1) -> None:
+                         repeat_updates: int = 1, halves: int = 1) -> None:
     """``running = 0.9 * running + 0.1 * batch``, ``repeat_updates`` times
     (the shared ``bn_e`` of the reference advances twice per layer,
-    gated_gcn_full.py:106,119); ``num_batches_tracked`` advances as often."""
+    gated_gcn_full.py:106,119); ``num_batches_tracked`` advances as often.
+    ``halves=2``: ``mean``/``unbiased_var`` are ``[2d]``, the org pass's
+    statistics then the flip pass's, applied in that order (norm.py:97-101)."""
+    d = mean.shape[0] // halves
     rm, rv = bn.running_mean, bn.running_var
-    for _ in range(repeat_updates):
-        rm = (1.0 - BN_MOMENTUM) * rm + BN_MOMENTUM * mean
-        rv = (1.0 - BN_MOMENTUM) * rv + BN_MOMENTUM * unbiased_var
+    for k in range(halves):
+        m, v = mean[k * d:(k + 1) * d], unbiased_var[k * d:(k + 1) * d]
+        for _ in range(repeat_updates):
+            rm = (1.0 - BN_MOMENTUM) * rm + BN_MOMENTUM * m
+            rv = (1.0 - BN_MOMENTUM) * rv + BN_MOMENTUM * v
     bn.running_mean.copy_(rm)
     bn.running_var.copy_(rv)
-    bn.num_batches_tracked.add_(repeat_updates)
+    bn.num_batches_tracked.add_(halves * repeat_updates)
 
 
 def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,
@@ -70,6 +81,30 @@ def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,
     return y * bn.weight + bn.bias
 
 
+def batch_norm_dual(bn: nn.BatchNorm1d, x2: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over ``x2`` [n, 2d] = [org | flip] through one [d]-feature
+    module (JAX ``batch_norm_dual``): in training each half normalises with
+    its own batch mean and biased variance and the running statistics take
+    the org half's update, then the flip half's (``num_batches_tracked``
+    advances twice); in eval both halves use the running statistics.  The
+    shared weight and bias are tiled, so their gradients sum both halves."""
+    weight = torch.cat([bn.weight, bn.weight])
+    bias = torch.cat([bn.bias, bn.bias])
+    if bn.training:
+        n = x2.shape[0]
+        mean = x2.sum(0) / n
+        var = ((x2 - mean) ** 2).sum(0) / n
+        y = (x2 - mean) * torch.rsqrt(var + BN_EPS)
+        update_running_stats(bn, mean.detach(),
+                             var.detach() * (n / (n - 1) if n > 1 else 1.0),
+                             halves=2)
+    else:
+        mean = torch.cat([bn.running_mean, bn.running_mean])
+        var = torch.cat([bn.running_var, bn.running_var])
+        y = (x2 - mean) * torch.rsqrt(var + BN_EPS)
+    return y * weight + bias
+
+
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """Per-row LayerNorm in the JAX package's explicit form: row mean,
     biased row variance, ``(x - mean) * rsqrt(var + eps) * weight + bias``."""
@@ -78,7 +113,14 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + LN_EPS) * ln.weight + ln.bias
 
 
-def apply_norm(norm: nn.LayerNorm | None, x: torch.Tensor) -> torch.Tensor:
-    """The unfused layer's normalisation: LayerNorm, or the identity for
+def apply_norm(norm: nn.Module | None, x: torch.Tensor) -> torch.Tensor:
+    """JAX ``apply_norm`` (norm.py:118-128) over the module a layer holds:
+    BatchNorm (batch statistics and one running update in training, the
+    running statistics in eval), LayerNorm, or the identity for
     ``normalization='none'`` (no norm module)."""
-    return x if norm is None else layer_norm(norm, x)
+    if norm is None:
+        return x
+    if isinstance(norm, nn.BatchNorm1d):
+        return (batch_norm_train(norm, x) if norm.training
+                else batch_norm_eval(norm, x))
+    return layer_norm(norm, x)

@@ -32,6 +32,20 @@ fused projection and ``b3e``, the endpoint gathers and gate in K1
 one K2 (``gated_mean_pair``), ``A1h + h_fwd + h_bwd``, the norm, relu,
 residual, and dropout in training.
 
+Both symmetry-loss passes at once (``forward_dual``, batch norm only; JAX
+``forward_dual``, sym_gated_gcn.py:290-402): node states ``[N, 2d]`` =
+[org | flip] and edge states ``[E, 2d]`` (starting from ``[e | e]``) run
+one pass at doubled width with flip=False.  The endpoint projection is
+block-diagonal, ``[bd(B1,B2) | bd(A2,A3) | bd(B2,B1) | bd(A3,A2)]``: the
+flip pass's u role is the dst endpoint, so its gate takes B2h at src and
+B1h at dst.  A weight that both halves share (A1, B3, the predictor's
+W1e, W2, W3) runs as one GEMM over the halves stacked as rows, with one
+pass's flops: the JAX form's block-diagonal ``bd(W, W)`` doubled them and
+measured 3.6 ms slower per golden-graph step on an H100 (PERF.md §6).
+The edge stage runs K7/K3 (K8 backward) at width 2d, the node stage
+``batch_norm_dual``, and the predictor K6 (K9 backward) at width 2H, so a
+step launches half the kernels of two passes.
+
 The batch-norm predictor moves the first layer's endpoint matmuls into node
 space (``puv = [h @ W1[:d] | h @ W1[d:2d]]``, ``be = e @ W1[2d:] + b1``),
 gathers and adds them per edge in kernel K6, then runs the two small
@@ -48,14 +62,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.graph_tensors import DeviceGraph
-from ..ops.message import (eval_edge_stage, gate_gather, gated_mean_pair,
-                           gather_uv, score_gate, train_edge_stage)
+from ..ops.message import (blocks_linear, eval_edge_stage, gate_gather,
+                           gated_mean_pair, gather_uv, score_gate,
+                           train_edge_stage)
 from .nn import dropout, mlp2
-from .norm import (apply_norm, batch_norm_eval, batch_norm_rows,
-                   batch_norm_train, update_running_stats)
+from .norm import (apply_norm, batch_norm_dual, batch_norm_eval,
+                   batch_norm_rows, batch_norm_train, update_running_stats)
 
 GATE_EPS = 1e-6  # gated-mean denominator epsilon (reference gated_gcn_full.py:114)
 NORMALIZATIONS = ("batch", "layer", "none")
+
+
+def _bd_cols(pairs):
+    """``[out, 2 in]`` weight whose output groups are ``[x, 0]`` or
+    ``[0, x]``: ``pairs`` lists ``(weight, half)``, ``half`` 0 reading the
+    org half of the input and 1 the flip half.  The transpose of the JAX
+    ``_dual_wuv`` column blocks, built with three concatenations."""
+    z = pairs[0][0].new_zeros(pairs[0][0].shape)
+    left = torch.cat([w if half == 0 else z for w, half in pairs])
+    right = torch.cat([w if half == 1 else z for w, half in pairs])
+    return torch.cat([left, right], 1)
+
+
+def _gated_means(s, d):
+    """``[gm(s, org) | gm(s, flip)]`` of a dual sum ``s`` = [m_org | m_flip
+    | sig_org | sig_flip] ([N, 4d])."""
+    return s[:, :2 * d] / (s[:, 2 * d:] + GATE_EPS)
 
 
 class SymGatedGCNLayer(nn.Module):
@@ -118,6 +150,51 @@ class SymGatedGCNLayer(nn.Module):
             h_new = dropout(h_new, drop_rate, generator)
         return h_new, e_out
 
+    def _dual_uv(self):
+        """The dual endpoint projection ``[2d] -> [8d]`` as an ``nn.Linear``
+        weight and bias: column groups (u gate, u msg, v gate, v msg), each
+        [org | flip] = [B1|B2], [A2|A3], [B2|B1], [A3|A2] (JAX
+        ``_dual_wuv``)."""
+        B1, A2, B2, A3 = self.B_1, self.A_2, self.B_2, self.A_3
+        order = ((B1, 0), (B2, 1), (A2, 0), (A3, 1),
+                 (B2, 0), (B1, 1), (A3, 0), (A2, 1))
+        return (_bd_cols([(m.weight, half) for m, half in order]),
+                torch.cat([m.bias for m, _ in order]))
+
+    def forward_dual(self, g: DeviceGraph, h2, e2, drop_rate: float = 0.0,
+                     generator=None):
+        """One layer over both symmetry passes (JAX ``_layer_dual``,
+        sym_gated_gcn.py:308-378), batch norm only: ``h2`` [N, 2d] and
+        ``e2`` [E, 2d], each [org | flip]."""
+        d = h2.shape[1] // 2
+        w_uv, b_uv = self._dual_uv()
+        if self.training:
+            e_out, sum_v, sum_u, mean, unbiased = train_edge_stage(
+                g, False, h2, w_uv.t(), b_uv, self.B_3.weight.t(),
+                self.B_3.bias, e2,
+                torch.cat([self.bn_e.weight, self.bn_e.weight]),
+                torch.cat([self.bn_e.bias, self.bn_e.bias]))
+            # the org pass's two updates, then the flip pass's two
+            update_running_stats(self.bn_e, mean, unbiased, repeat_updates=2,
+                                 halves=2)
+        else:
+            proj = F.linear(h2, w_uv, b_uv)
+            e_out, sum_v, sum_u = eval_edge_stage(
+                g, proj[:, :4 * d], proj[:, 4 * d:],
+                blocks_linear(e2, self.B_3.weight.t(), self.B_3.bias), e2,
+                batch_norm_rows(self.bn_e).repeat(1, 2))
+        # the flip pass's forward aggregation is keyed by src: its halves
+        # come from sum_u
+        gv, gu = _gated_means(sum_v, d), _gated_means(sum_u, d)
+        h_fwd = torch.cat([gv[:, :d], gu[:, d:]], 1)
+        h_bwd = torch.cat([gu[:, :d], gv[:, d:]], 1)
+        a1 = blocks_linear(h2, self.A_1.weight.t(), self.A_1.bias)
+        h_new = a1 + h_fwd + h_bwd
+        h_new = torch.relu(batch_norm_dual(self.bn_h, h_new)) + h2
+        if drop_rate > 0.0:
+            h_new = dropout(h_new, drop_rate, generator)
+        return h_new, e_out
+
     def _forward_unfused(self, g: DeviceGraph, h, e, flip: bool,
                          drop_rate: float, generator):
         d = h.shape[1]
@@ -165,6 +242,22 @@ class ScorePredictor(nn.Module):
         z = score_gate(g, flip, puv, be)
         return self.W3(torch.relu(self.W2(z)))
 
+    def forward_dual(self, g: DeviceGraph, h2, e2):
+        """Both passes' logits ``[E, 2]`` (org, flip) from ``h2``/``e2``
+        [*, 2d] (JAX ``score_edges_dual``, sym_gated_gcn.py:381-402): K6
+        at width 2H on ``puv = [h_o W1u | h_f W1v | h_o W1v | h_f W1u]``
+        (the flip pass's u role is dst), then W2 and W3 on each half."""
+        d = h2.shape[1] // 2
+        w1 = self.W1.weight
+        w1u, w1v = w1[:, :d], w1[:, d:2 * d]
+        h_o, h_f = h2[:, :d], h2[:, d:]
+        puv = torch.cat([F.linear(h_o, w1u), F.linear(h_f, w1v),
+                         F.linear(h_o, w1v), F.linear(h_f, w1u)], dim=1)
+        be = blocks_linear(e2, w1[:, 2 * d:].t(), self.W1.bias)
+        z = score_gate(g, False, puv, be)
+        z = torch.relu(blocks_linear(z, self.W2.weight.t(), self.W2.bias))
+        return blocks_linear(z, self.W3.weight.t(), self.W3.bias)
+
 
 class SymGatedGCN(nn.Module):
     """SymGatedGCN.  ``forward(g, x, e, flip)`` takes node features ``x``
@@ -174,6 +267,8 @@ class SymGatedGCN(nn.Module):
     built in eval mode; ``.train()`` selects the training forward, whose
     dropout (rate ``dropout``) needs a ``generator``.  ``normalization`` is
     ``batch``, ``layer`` or ``none``."""
+
+    kind = "sym_gatedgcn"
 
     def __init__(self, node_features: int = 2, edge_features: int = 2,
                  hidden_features: int = 64, hidden_ne_features: int = 16,
@@ -192,15 +287,13 @@ class SymGatedGCN(nn.Module):
         self.eval()
 
     @classmethod
-    def from_config(cls, cfg) -> "SymGatedGCN":
-        """From a ``config.ModelConfig``; only the SymGatedGCN is ported
-        (the zoo models are not)."""
-        if cfg.model != "sym_gatedgcn":
-            raise NotImplementedError(
-                f"model={cfg.model!r}: only sym_gatedgcn is ported")
-        return cls(cfg.node_features, cfg.edge_features, cfg.dim_latent,
-                   cfg.hidden_ne_features, cfg.num_gnn_layers,
-                   cfg.hidden_edge_scores, cfg.dropout, cfg.normalization)
+    def from_config(cls, cfg) -> nn.Module:
+        """The module a ``config.ModelConfig`` names
+        (``models.zoo.get_model``): a ``SymGatedGCN`` for ``sym_gatedgcn``,
+        a zoo model for ``gatedgcn``, ``gcn``, ``gat`` or ``sage``; any
+        other name raises with the list of valid ones."""
+        from .zoo import get_model
+        return get_model(cfg)
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> "SymGatedGCN":
@@ -244,3 +337,31 @@ class SymGatedGCN(nn.Module):
         batch.  Returns ``(logits_org, logits_rev)``."""
         return (self(g, x, e, False, generator, slot_io),
                 self(g, x_rev, e, True, generator, slot_io))
+
+    def forward_dual(self, g: DeviceGraph, x, x_rev, e, generator=None,
+                     slot_io: bool = False):
+        """Both symmetry-loss passes as one pass at doubled width (JAX
+        ``forward_dual``, sym_gated_gcn.py:424-534): ``h = [enc(x) |
+        enc(x_rev)]``, ``e2 = [e | e]``, every layer's ``forward_dual``, the
+        dual predictor.  Equal to ``forward_pair`` up to float rounding and
+        the dropout draw (one ``[N, 2d]`` mask per layer), BatchNorm running
+        statistics included.  Layer norm and none run ``forward_pair``, as
+        the JAX function declines the dual mode for them.  Returns
+        ``(logits_org, logits_rev)``, each [E, 1]."""
+        if self.normalization != "batch":
+            return self.forward_pair(g, x, x_rev, e, generator, slot_io)
+        drop = self.dropout if self.training else 0.0
+        if drop > 0.0 and generator is None:
+            raise ValueError("training-mode dropout needs a torch.Generator")
+        h = torch.cat([mlp2(self.linear1_node, self.linear2_node, x),
+                       mlp2(self.linear1_node, self.linear2_node, x_rev)], 1)
+        e = mlp2(self.linear1_edge, self.linear2_edge, e)
+        if not slot_io:
+            e = g.edges_to_slots(e)
+        e = torch.cat([e, e], 1)
+        for conv in self.gnn.convs:
+            h, e = conv.forward_dual(g, h, e, drop, generator)
+        logits = self.predictor.forward_dual(g, h, e)
+        if not slot_io:
+            logits = g.slots_to_edges(logits)
+        return logits[:, :1], logits[:, 1:]

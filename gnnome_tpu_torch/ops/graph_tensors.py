@@ -22,6 +22,21 @@ import numpy as np
 import torch
 
 
+class _Permute(torch.autograd.Function):
+    """``x[idx]`` for a permutation ``idx`` with inverse ``inverse``; the
+    backward is the inverse gather (autograd's own would be an
+    ``index_add_``, atomic on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inverse):
+        ctx.inverse = inverse
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, d):
+        return d.index_select(0, ctx.inverse), None, None
+
+
 def _row_ptr(keys: np.ndarray, n: int) -> np.ndarray:
     ptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
@@ -88,8 +103,8 @@ class DeviceGraph:
 
     def edges_to_slots(self, x: torch.Tensor) -> torch.Tensor:
         """Host-edge-order [E, ...] -> slot order."""
-        return x.index_select(0, self.eid_of_slot)
+        return _Permute.apply(x, self.eid_of_slot, self.slot_of_eid)
 
     def slots_to_edges(self, x: torch.Tensor) -> torch.Tensor:
         """Slot order [E, ...] -> host edge order."""
-        return x.index_select(0, self.slot_of_eid)
+        return _Permute.apply(x, self.slot_of_eid, self.eid_of_slot)

@@ -7,7 +7,8 @@ K7 (gate batch statistics), K8 (edge-stage adjoint) and K9 (score-gate
 adjoint) carry its training.  K1 (endpoint gathers and gate) and K2
 (two-sided aggregation) carry the layer-norm and norm-free model, forward
 and backward (``ops/message.py`` wraps them in
-``torch.autograd.Function``s).
+``torch.autograd.Function``s).  ``k2_side_sum``, one side of K2's walk as
+its own entry, carries the model zoo's reductions into nodes.
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper counts
@@ -120,6 +121,10 @@ def _library():
                 I, I, P, P, P, P,            # n_nodes, width, v_ptr, v_perm, u_ptr, u_perm
                 P, L, P, L,                  # pay_u, ldu, pay_v, ldv
                 P, P, P]                     # sum_u, sum_v, stream
+            lib.gn_k2_side_sum.restype = I
+            lib.gn_k2_side_sum.argtypes = [
+                I, I, P, P,                  # n_nodes, width, ptr, perm
+                P, L, P, P]                  # pay, ld, out, stream
             lib.gn_k3_edge_stage.restype = I
             lib.gn_k3_edge_stage.argtypes = [
                 I, I, P, P, P, P, P, P,      # n_nodes, d, v_ptr, v_perm, v_nbr, u_ptr, u_perm, u_nbr
@@ -273,6 +278,46 @@ def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
     _raise_on(rc, "K2")
     k2_aggregate.launches += 1
     return sum_u, sum_v
+
+
+def k2_side_sum_plain(idx, pay, n_nodes: int):
+    """Plain PyTorch one-sided K2: ``out [N, D]``, ``out[i]`` the sum of the
+    rows ``pay[s]`` of the slots with ``idx[s] = i``.  On the CPU
+    ``index_add_`` adds each node's rows in slot order, as the kernel does,
+    so the two agree bit for bit."""
+    out = torch.zeros((n_nodes, pay.shape[1]), dtype=pay.dtype,
+                      device=pay.device)
+    return out.index_add_(0, idx, pay)
+
+
+def k2_side_sum(idx, csr, pay):
+    """One side of K2's walk (csrc/k2_aggregate.cu ``gn_k2_side_sum``):
+    ``idx`` [E] the node of each slot on that side, ``csr`` = ``(ptr
+    [N+1], perm [E] or None, nbr [E])`` its slot lists (one of
+    ``DeviceGraph.roles``); ``pay`` [E, D] may be a column slice
+    (row-strided).  Returns what ``k2_side_sum_plain`` returns."""
+    ptr, perm, _ = csr
+    n = ptr.shape[0] - 1
+    if pay.device.type == "cpu":
+        return k2_side_sum_plain(idx, pay, n)
+    if pay.device.type != "cuda":
+        raise ValueError(f"K2 side sum: unsupported device {pay.device}")
+    dev = pay.device
+    E, D = pay.shape
+    _check("pay", pay, torch.float32, (E, D), dev, rows_contiguous=False)
+    _check("idx", idx, torch.int32, (E,), dev)
+    _check("ptr", ptr, torch.int32, (n + 1,), dev)
+    if perm is not None:
+        _check("perm", perm, torch.int32, (E,), dev)
+    out = torch.empty((n, D), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_k2_side_sum(n, D, _ptr(ptr), _ptr(perm), _ptr(pay),
+                                pay.stride(0), _ptr(out),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "K2 side sum")
+    k2_side_sum.launches += 1
+    return out
 
 
 # ------------------------------------------------------------------------- K3
@@ -555,7 +600,7 @@ def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
 
 # ------------------------------------------------------------ launch counting
 KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
-           "k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
+           "k2_side_sum": k2_side_sum, "k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
            "k7_gate_stats": k7_gate_stats,
            "k8_train_layer_bwd": k8_train_layer_bwd,
            "k9_aggregate": k9_aggregate}

@@ -1,4 +1,5 @@
-"""Message-passing ops of the SymGatedGCN, over a ``DeviceGraph``.
+"""Message-passing ops of the SymGatedGCN and the model zoo, over a
+``DeviceGraph``.
 
 The PyTorch counterparts of ``gnnome_tpu/ops/message.py``'s fused ops
 (``fused_eval_edge_stage``, ``fused_train_stage``, ``fused_score_gate``:
@@ -25,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from .graph_tensors import DeviceGraph
-from .kernels import (k1_gather_gate, k2_aggregate, k3_edge_stage,
-                      k6_score_gate, k7_gate_stats, k8_train_layer_bwd,
-                      k9_aggregate)
+from .kernels import (k1_gather_gate, k2_aggregate, k2_side_sum,
+                      k3_edge_stage, k6_score_gate, k7_gate_stats,
+                      k8_train_layer_bwd, k9_aggregate)
 
 BN_EPS = 1e-5
 
@@ -60,6 +61,15 @@ def _batch_stats(stats, n_edges: int, dtype):
     return mean, inv, var * (n / max(n - 1.0, 1.0))
 
 
+def blocks_linear(x, w, b):
+    """``x @ w + b`` on each ``w.shape[0]``-wide column block of ``x``
+    (``w`` [in, out], the JAX layout): one GEMM over the blocks stacked as
+    rows, ``[n, m * in] -> [n, m * out]``.  The dual pass applies a weight
+    that both halves share this way, with one pass's flops."""
+    k = w.shape[0]
+    return torch.addmm(b, x.reshape(-1, k), w).view(x.shape[0], -1)
+
+
 class _TrainEdgeStage(torch.autograd.Function):
     """See ``train_edge_stage``.  Saved state is small, as in the JAX
     package (message.py:449-450): h, e, the weights and the [d] batch
@@ -70,7 +80,7 @@ class _TrainEdgeStage(torch.autograd.Function):
         d = h.shape[1]
         u_idx, v_idx, v_csr, u_csr = g.roles(flip)
         proj = h @ w_uv + b_uv                  # [N, 4d]
-        b3e = e @ w3 + b3
+        b3e = blocks_linear(e, w3, b3)
         stats = k7_gate_stats(u_idx, v_idx, proj[:, :d], proj[:, 2 * d:3 * d],
                               b3e)
         mean, inv, unbiased = _batch_stats(stats, g.n_edges, h.dtype)
@@ -100,7 +110,7 @@ class _TrainEdgeStage(torch.autograd.Function):
         # the forward's projections again: the same inputs and operations,
         # so K8's recomputed gate, relu mask and sigma equal K3's bit for bit
         proj = h @ w_uv + b_uv
-        b3e = e @ w3 + b3
+        b3e = blocks_linear(e, w3, b3)
         x, d_eo, node_u, node_v, stats = k8_train_layer_bwd(
             u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj[:, :2 * d],
             proj[:, 2 * d:], b3e, e, d_e_out, bn)
@@ -135,9 +145,11 @@ class _TrainEdgeStage(torch.autograd.Function):
         d_h = d_proj @ w_uv.t()
         d_w_uv = h.t() @ d_proj
         d_b_uv = d_proj.sum(0)
-        d_e = d_eo + d_b3e @ w3.t()
-        d_w3 = e.t() @ d_b3e
-        d_b3 = d_b3e.sum(0)
+        k = w3.shape[0]
+        rows = d_b3e.reshape(-1, k)             # one row per column block
+        d_e = d_eo + (rows @ w3.t()).view(e.shape)
+        d_w3 = e.reshape(-1, k).t() @ rows
+        d_b3 = rows.sum(0)
         return (None, None, d_h, d_w_uv, d_b_uv, d_w3, d_b3, d_e,
                 d_gamma.to(h.dtype), A.to(h.dtype))
 
@@ -148,7 +160,8 @@ def train_edge_stage(g: DeviceGraph, flip: bool, h, w_uv, b_uv, w3, b3, e,
     ``fused_train_stage`` (message.py:367-636) on unpacked slot-order edges.
 
     ``proj = h @ w_uv + b_uv`` with ``w_uv`` = [B1|A2|B2|A3] ([d, 4d], the
-    JAX ``[in, out]`` layout), ``b3e = e @ w3 + b3``; K7 sums the gate
+    JAX ``[in, out]`` layout), ``b3e = e @ w3 + b3`` (``blocks_linear``: in
+    the dual pass ``w3`` [d', d'] acts on each half of ``e`` [E, 2d']); K7 sums the gate
     ``x = B1h[u] + B2h[v] + b3e`` into the batch statistics (biased variance
     normalises), K3 runs the edge stage with the rows [mean, inv_std, gamma,
     beta].  Returns ``(e_out [E, d], sum_v [N, 2d], sum_u [N, 2d], mean [d],
@@ -273,3 +286,54 @@ def gather_uv(g: DeviceGraph, flip: bool, h):
     ``gather_uv_planned``, message.py:153-182): row gathers forward, K2
     backward (``d_h = sum_u(d_u) + sum_v(d_v)``)."""
     return _GatherUV.apply(g, flip, h)
+
+
+# ------------------------------------------------------------ model zoo
+def _side(g: DeviceGraph, side: str):
+    """``(node of each slot, slot lists (ptr, perm, nbr))`` of one endpoint
+    side, ``dst`` or ``src``."""
+    _, _, by_dst, by_src = g.roles(False)
+    if side == "dst":
+        return g.dst, by_dst
+    if side == "src":
+        return g.src, by_src
+    raise ValueError(f"side={side!r}: expected 'dst' or 'src'")
+
+
+class _SumInto(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, side, pay):
+        idx, csr = _side(g, side)
+        ctx.idx = idx
+        return k2_side_sum(idx, csr, pay)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return None, None, d_out.index_select(0, ctx.idx)
+
+
+def sum_into(g: DeviceGraph, side: str, pay):
+    """``out[i]`` = sum of ``pay[s]`` over the slots whose ``side``
+    endpoint (``dst`` or ``src``) is i ([N, D]; JAX ``jax.ops.segment_sum``
+    of the zoo, zoo.py:64-78): the one-sided K2 walk, in slot order, no
+    atomics.  The backward gathers the cotangent's rows."""
+    return _SumInto.apply(g, side, pay)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, side, h):
+        idx, csr = _side(g, side)
+        ctx.idx, ctx.csr = idx, csr
+        return h.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        return None, None, k2_side_sum(ctx.idx, ctx.csr, d_rows.contiguous())
+
+
+def gather_rows(g: DeviceGraph, side: str, h):
+    """``h[side(s)]`` for every slot s ([E, D]; JAX ``jnp.take`` of the zoo):
+    a row gather whose backward sums the cotangent into that side with the
+    one-sided K2 walk (autograd's own would be an atomic ``index_add_``)."""
+    return _GatherRows.apply(g, side, h)

@@ -33,9 +33,9 @@ import torch
 
 from ..config import Config, resolve_device
 from ..data.dataset import dataset_for
-from ..models import SymGatedGCN
 from ..models.checkpoint import load_pytrees, save_model_weights, save_pytrees
-from ..models.convert import module_state_from_numpy, numpy_from_module_state
+from ..models.convert import load_model_pytrees, pytrees_from_model
+from ..models.zoo import get_model
 from ..utils.seed import set_seed
 from .metrics import average_epoch_metrics, compute_metrics
 from .scheduler import ReduceLROnPlateau
@@ -92,7 +92,8 @@ def _run_epoch(ds, model, opt, pos_weight, cfg, rng_np, generator, device,
         _, graph = ds[i]
         for unit in host_units(graph, cfg, rng_np, shuffle_parts=training):
             ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
-                              unit.src, unit.dst, unit.n_nodes, device)
+                              unit.src, unit.dst, unit.n_nodes, device,
+                              cfg.model)
             if training:
                 loss, logits = train_step(model, opt, ex, pos_weight, cfg,
                                           generator)
@@ -127,7 +128,7 @@ def _set_rng_state(st: dict, rng_np, generator) -> None:
 
 def _save_ckpt(path, epoch, model, opt, scheduler, loss_train, loss_valid,
                rng_np, generator):
-    params, state = numpy_from_module_state(model.state_dict())
+    params, state = pytrees_from_model(model)
     moments = {}
     for name, p in model.named_parameters():
         st = opt.state[p]
@@ -149,8 +150,7 @@ def _load_ckpt(path, model, opt, scheduler, rng_np, generator, device):
     """Restores everything ``_save_ckpt`` wrote; returns (start_epoch,
     loss_train, loss_valid)."""
     trees = load_pytrees(path)
-    model.load_state_dict(module_state_from_numpy(
-        trees["params"], trees["state"], model.normalization))
+    load_model_pytrees(model, trees["params"], trees.get("state", {}))
     for name, p in model.named_parameters():
         st = trees["opt"][name]
         opt.state[p] = {
@@ -171,7 +171,8 @@ def _load_ckpt(path, model, opt, scheduler, rng_np, generator, device):
 def train(train_path: str, valid_path: str, assembler: str,
           out_name: str | None = None, overfit: bool = False,
           resume: bool = False, cfg: Config | None = None) -> str:
-    """Train the SymGatedGCN edge scorer; returns the best-model path."""
+    """Train the edge scorer ``cfg.model`` names (the SymGatedGCN or a zoo
+    model); returns the best-model path."""
     cfg = cfg or Config()
     device = resolve_device(cfg.compute.device)
     rng_np, _ = set_seed(cfg.train.seed)
@@ -198,7 +199,7 @@ def train(train_path: str, valid_path: str, assembler: str,
             f"No processed graphs found under {valid_path}/{assembler}/processed")
 
     pos_weight = _pos_weight_from(ds_train)
-    model = SymGatedGCN.from_config(cfg.model).init_weights(cfg.train.seed)
+    model = get_model(cfg.model).init_weights(cfg.train.seed)
     model.to(device)
     opt = make_optimizer(model, cfg.train.lr)
     scheduler = ReduceLROnPlateau(cfg.train.lr, factor=cfg.train.decay,
@@ -221,7 +222,8 @@ def train(train_path: str, valid_path: str, assembler: str,
     print(f"Seed: {cfg.train.seed}  Model path: {model_path}")
     print(f"Trainable parameters: "
           f"{sum(p.numel() for p in model.parameters())}")
-    print(f"Normalization: {cfg.model.normalization}  "
+    print(f"Model: {cfg.model.model}  "
+          f"normalization: {cfg.model.normalization}  "
           f"pos_weight: {pos_weight:.4f}")
     print("---------------------------------------")
 
@@ -229,8 +231,7 @@ def train(train_path: str, valid_path: str, assembler: str,
                          cfg.wandb_mode, cfg.wandb_project, out, cfg.to_dict())
 
     def save_best():
-        save_model_weights(model_path,
-                           *numpy_from_module_state(model.state_dict()))
+        save_model_weights(model_path, *pytrees_from_model(model))
 
     def save_ckpt(epoch):
         _save_ckpt(ckpt_path, epoch, model, opt, scheduler, loss_train_hist,

@@ -7,11 +7,16 @@ counterpart of ``gnnome_tpu/train/step.py``).
 * node degree features come from the pre-mask graph and are z-scored per
   unit (train.py:112-135); edge features are computed once on the full
   graph and gathered (utils/data_utils.py:34-40, train.py:134);
-* a ``TrainExample`` holds a unit on the device: its ``DeviceGraph`` and
-  features, with edge features and labels already in slot order (no
-  padding), so the step does no permutation on the device;
-* the symmetry loss runs the model twice (org, then flipped) with chained
-  BatchNorm state, as two sequential torch forwards would (train.py:159-185).
+* a ``TrainExample`` holds a unit on the device: its ``DeviceGraph`` (and
+  a zoo model's processor graph) and features, with edge features and
+  labels already in slot order (no padding), so the step does no
+  permutation on the device;
+* the SymGatedGCN trains with the symmetry loss (train.py:159-185):
+  with batch norm both passes run as one dual-width pass
+  (``forward_dual``), with layer norm or none as two passes with chained
+  state (``forward_pair``), as the JAX ``loss_fn`` does
+  (step.py:254-276); the zoo models train with plain pos-weighted BCE in
+  one ``flip=False`` pass (step.py:229-231).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..models.zoo import SYM_NAMES, processor_graph
 from ..ops.graph_tensors import DeviceGraph
 from .loss import bce_with_logits, symmetry_loss
 
@@ -33,6 +39,7 @@ class TrainExample:
     e: torch.Tensor             # [E, F] edge features, slot order
     labels: torch.Tensor        # [E] float32, slot order
     labels_host: np.ndarray     # the same labels on the host
+    g_proc: DeviceGraph | None = None   # a zoo model's processor graph
 
 
 def _zscore(v: np.ndarray) -> np.ndarray:
@@ -42,9 +49,10 @@ def _zscore(v: np.ndarray) -> np.ndarray:
 
 
 def make_example(in_deg, out_deg, e_feat, y, src, dst, n_nodes: int,
-                 device) -> TrainExample:
+                 device, model_cfg=None) -> TrainExample:
     """Device example from host arrays (host edge order in, slot order
-    out)."""
+    out); with ``model_cfg`` naming a zoo model, also the processor graph
+    that model runs on (``models.zoo.processor_graph``)."""
     g = DeviceGraph.build(src, dst, n_nodes, device)
     eid_of_slot = g.eid_of_slot.cpu().numpy()
     zi, zo = _zscore(in_deg), _zscore(out_deg)
@@ -57,7 +65,9 @@ def make_example(in_deg, out_deg, e_feat, y, src, dst, n_nodes: int,
                                                dtype=np.float32),
                           device=device),
         labels=torch.as_tensor(y_slots, device=device),
-        labels_host=y_slots)
+        labels_host=y_slots,
+        g_proc=(None if model_cfg is None else
+                processor_graph(model_cfg, src, dst, n_nodes, device)))
 
 
 def mask_graph_strandwise(graph, fraction: float, rng: np.random.Generator):
@@ -133,9 +143,16 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
 
 def _loss(model, ex: TrainExample, pos_weight: float, cfg: Config,
           generator):
-    """(loss, org-pass logits [E] in slot order)."""
+    """(loss, org-pass logits [E] in slot order), as the JAX ``loss_fn``
+    (step.py:254-276): the SymGatedGCN's symmetry loss over
+    ``forward_dual`` (one dual-width pass with batch norm, two passes
+    otherwise), or plain BCE of one ``flip=False`` pass (the zoo models,
+    or the symmetry loss switched off)."""
+    if cfg.model.model not in SYM_NAMES:
+        lo = model(ex.g, ex.x, ex.e, ex.g_proc, generator, slot_io=True)
+        return bce_with_logits(lo[:, 0], ex.labels, pos_weight), lo[:, 0]
     if cfg.train.use_symmetry_loss:
-        lo, lr = model.forward_pair(ex.g, ex.x, ex.x_rev, ex.e, generator,
+        lo, lr = model.forward_dual(ex.g, ex.x, ex.x_rev, ex.e, generator,
                                     slot_io=True)
         lo = lo[:, 0]
         return symmetry_loss(lo, lr[:, 0], ex.labels, pos_weight,
@@ -147,7 +164,7 @@ def _loss(model, ex: TrainExample, pos_weight: float, cfg: Config,
 def train_step(model, opt, ex: TrainExample, pos_weight: float, cfg: Config,
                generator):
     """One Adam step on one example (step.py:249-302): training-mode
-    forward(s), loss, backward (K8/K9), update.  Returns ``(loss, logits)``
+    forward(s), loss, backward, update.  Returns ``(loss, logits)``
     as device tensors: no host synchronisation happens here."""
     model.train()
     opt.zero_grad(set_to_none=True)
@@ -160,6 +177,6 @@ def train_step(model, opt, ex: TrainExample, pos_weight: float, cfg: Config,
 @torch.no_grad()
 def eval_step(model, ex: TrainExample, pos_weight: float, cfg: Config):
     """Loss and logits with the eval forward (running statistics, no
-    dropout, K3 eval and K6), step.py:304-310."""
+    dropout), step.py:304-310."""
     model.eval()
     return _loss(model, ex, pos_weight, cfg, None)

@@ -4,14 +4,16 @@
     python scripts/torch_train_profile.py [--iters 5] [--out DIR]
         [--normalization batch|layer|none]
 
-Runs symmetry-loss train steps (two passes, backward, Adam) of the
+Runs symmetry-loss train steps (batch norm: both passes as one dual-width
+pass; layer norm, none: two passes; backward, Adam) of the
 full-width SymGatedGCN (d=64, 8 layers, dropout 0.2), started from
 weights/weights.npz (batch norm, the default) or seeded init weights
 (``init_weights(7)``: layer norm, none), on the E. coli-scale golden graph
 (tests/fixtures/golden_ecoli_v1.npz) as one unit (no masking, no
 clustering), under ``torch.profiler``, and prints one JSON line: the step's
 wall time (host clock around synchronised steps, unprofiled), the device
-busy time per kernel name summed over the profiled steps, the share of the
+busy time per kernel name summed over the profiled steps, the device
+launches per step, the share of the
 unprofiled step the device sat idle (and of the profiled one, which the
 profiler's host overhead stretches), the peak device memory, and the card
 (``nvidia-smi`` name and power limit).  With ``--out`` it also writes the Chrome trace there.
@@ -124,6 +126,8 @@ def main() -> int:
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "device_idle_share_profiled": max(0.0, 1.0 - busy_ms / prof_ms),
         "max_memory_allocated_mb": peak_mb,
+        "device_launches_per_step": sum(k["calls_per_step"]
+                                        for k in kernels.values()),
         "kernels": dict(sorted(kernels.items(),
                                key=lambda kv: -kv[1]["us_per_step"])),
     }))

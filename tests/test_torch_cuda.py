@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K2, K3, K6, K7, K8 and K9 against their plain
-PyTorch versions, on the card, and two card train steps from one state
-bitwise equal (batch norm and layer norm).  Every test here is
+"""The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8 and K9
+against their plain PyTorch versions, on the card, and two card train
+steps from one state bitwise equal (batch norm, layer norm, two zoo
+models).  Every test here is
 ``cuda``-marked and skips where no GPU is present.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -17,7 +18,8 @@ path and with odd ones that take the one-float path; K7 up to d = 256 on
 those graphs and on a graph of fewer edges than one index chunk, and on
 both of its paths bitwise equal; K2 up to width 256; K9 at H = 16, 20,
 64, 128 and 256 on all three graphs, dense, on column slices and on odd row
-strides.
+strides; the one-sided K2 walk at D = 3, 16, 64 and 192 into each side,
+dense and on column slices, on all three graphs.
 
 Tolerances: e_out and z repeat the plain version's per-op rounding (only
 sigmoid's exp may differ by an ulp): ``atol=1e-5`` and exact; node sums add
@@ -26,8 +28,8 @@ sigmoid's exp may differ by an ulp): ``atol=1e-5`` and exact; node sums add
 relative to the sum of magnitudes (the order differs); K8's per-edge x is
 exact, d_eo ``atol=1e-5`` (sigmoid); K2's sums as K3's; K9's exact against
 the plain version on CPU copies, where ``index_add_`` adds each node's terms
-in slot order as the kernel does; K1 repeats the plain version's adds:
-exact.
+in slot order as the kernel does, and so are the one-sided walk's; K1
+repeats the plain version's adds: exact.
 """
 import pytest
 import torch
@@ -310,13 +312,14 @@ def test_k9_kernel_vs_plain(graphs, cuda, flip, h, which, layout):
 
 
 @pytest.mark.parametrize("norm,launches", [
-    ("batch", {"k3_edge_stage": 32, "k6_score_gate": 4, "k7_gate_stats": 32,
-               "k8_train_layer_bwd": 32, "k9_aggregate": 4}),
+    ("batch", {"k3_edge_stage": 16, "k6_score_gate": 2, "k7_gate_stats": 16,
+               "k8_train_layer_bwd": 16, "k9_aggregate": 2}),
     ("layer", {"k1_gather_gate": 32, "k2_aggregate": 68})])
 def test_two_card_train_steps_bitwise_equal(cuda, norm, launches):
     """Two train steps from one state (weights, data, dropout seed) give the
     same loss, logits, gradients and parameters after Adam, bit for bit,
-    and launch only the kernels of the model's path (two 8-layer steps)."""
+    and launch only the kernels of the model's path (two 8-layer steps;
+    batch norm runs both symmetry passes as one dual-width pass)."""
     import numpy as np
 
     from gnnome_tpu_torch.config import Config
@@ -344,6 +347,71 @@ def test_two_card_train_steps_bitwise_equal(cuda, norm, launches):
         outs.append((loss, logits, grads,
                      [p.detach().clone() for p in model.parameters()]))
     assert K.launch_counts() == {**{k: 0 for k in K.KERNELS}, **launches}
+    (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
+    assert torch.isfinite(lo0).all()
+    assert torch.equal(l0, l1) and torch.equal(lo0, lo1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.parametrize("which", ["assembly", "hub", "tiny"])
+@pytest.mark.parametrize("width,pad", [(3, 0), (16, 0), (64, 0), (64, 5),
+                                       (192, 0), (192, 8)])
+@pytest.mark.parametrize("side", ["dst", "src"])
+def test_k2_side_sum_kernel_vs_cpu_plain(graphs, cuda, side, width, pad,
+                                         which):
+    """Exact against its plain version on CPU copies, one launch counted,
+    bitwise reproducible; ``pad`` > 0 reads a column slice."""
+    graph = graphs[which]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    pay = torch.randn(graph.n_edges, width + pad, device=cuda,
+                      generator=gen)[:, :width]
+    _, _, by_dst, by_src = graph.roles(False)
+    idx, csr = (graph.dst, by_dst) if side == "dst" else (graph.src, by_src)
+    n0 = K.k2_side_sum.launches
+    got = K.k2_side_sum(idx, csr, pay)
+    assert K.k2_side_sum.launches == n0 + 1
+    torch.cuda.synchronize()
+    ref = K.k2_side_sum_plain(idx.cpu(), pay.cpu(), graph.n_nodes)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=0)
+    assert torch.equal(got, K.k2_side_sum(idx, csr, pay))
+
+
+@pytest.mark.parametrize("name,directed,side_sums", [
+    ("gatedgcn", False, 48), ("gat", True, 96)])
+def test_two_card_zoo_train_steps_bitwise_equal(cuda, name, directed,
+                                                side_sums):
+    """Two zoo train steps (plain BCE, dropout 0.2) from one state, bit for
+    bit, launching only the one-sided walk and the predictor's K2."""
+    import numpy as np
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.models import get_model
+    from gnnome_tpu_torch.train.step import (host_units, make_example,
+                                             make_optimizer, train_step)
+
+    g, _, _, _ = synthetic_assembly_graph(n_reads=300, genome_len=25000,
+                                          read_len=400, seed=13)
+    cfg = Config()
+    cfg.model.model = name
+    cfg.model.directed = directed
+    cfg.train.masking = False
+    cfg.train.num_nodes_per_cluster = 10_000
+    (unit,) = host_units(g, cfg, np.random.default_rng(0))
+    ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
+                      unit.src, unit.dst, unit.n_nodes, cuda, cfg.model)
+    K.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        model = get_model(cfg.model).init_weights(3).to(cuda)
+        opt = make_optimizer(model, 1e-3)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        loss, logits = train_step(model, opt, ex, 2.0, cfg, gen)
+        outs.append((loss, logits,
+                     [p.grad.clone() for p in model.parameters()],
+                     [p.detach().clone() for p in model.parameters()]))
+    assert K.launch_counts() == {**{k: 0 for k in K.KERNELS},
+                                 "k2_side_sum": side_sums, "k2_aggregate": 2}
     (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
     assert torch.isfinite(lo0).all()
     assert torch.equal(l0, l1) and torch.equal(lo0, lo1)

@@ -283,7 +283,7 @@ def test_wrappers_count_only_kernel_launches(graphs):
     (z.sum() + sum_u.sum()).backward()
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
     assert set(K.KERNELS) == {"k1_gather_gate", "k2_aggregate",
-                              "k3_edge_stage", "k6_score_gate",
+                              "k2_side_sum", "k3_edge_stage", "k6_score_gate",
                               "k7_gate_stats", "k8_train_layer_bwd",
                               "k9_aggregate"}
 

@@ -504,9 +504,11 @@ def test_from_config_normalizations():
     m.init_weights(1)
     assert torch.equal(m.gnn.convs[0].bn_h.weight, torch.ones(64))
     assert torch.equal(m.gnn.convs[0].bn_h.bias, torch.zeros(64))
+    from gnnome_tpu_torch.models.zoo import ZOO
     for zoo in ("gatedgcn", "gcn", "gat", "sage"):
-        with pytest.raises(NotImplementedError, match="sym_gatedgcn"):
-            SymGatedGCN.from_config(ModelConfig(model=zoo))
+        assert type(SymGatedGCN.from_config(ModelConfig(model=zoo))) is ZOO[zoo]
+    with pytest.raises(ValueError, match="sym_gatedgcn"):
+        SymGatedGCN.from_config(ModelConfig(model="gin"))
     with pytest.raises(ValueError, match="normalization"):
         SymGatedGCN.from_config(ModelConfig(normalization="group"))
 
