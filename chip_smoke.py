@@ -30,17 +30,18 @@ seconds since the script started):
    wrapper can exceed), ``device_ms`` the same with each repeat's calls
    queued behind a sleep kernel (the device alone); for K3 and K8 also the
    memory rate their device time gives the bytes they move, for K6, K7
-   and K9 the rate it gives their bound's bytes.  K9 must also be
-   bit-equal to its plain version run on CPU copies of its inputs, and is
-   timed on a copy of the golden graph whose node ids are relabelled by a
-   seeded random permutation.  The dual symmetry pass's widths: K3, K7,
+   and K9 the rate it gives their bound's bytes.  K1 must be bit-equal to
+   its plain version; K2 and K9 to theirs run on CPU copies of their
+   inputs; K9 is also timed on a copy of the golden graph whose node ids
+   are relabelled by a seeded random permutation.  The dual symmetry pass's widths: K3, K7,
    K8 at d = 128 and K6, K9 at H = 128 (flip=False), checked and timed
    beside their bounds.  The one-sided K2 walk (``k2_side_sum``, the
    zoo's node sums) at D = 64 and 192 into each side, timed beside
    ``index_add_`` into one side, bit-equal to its plain version on CPU
-   copies (also at D = 3 and on column slices).  Then K3, K6, K7 and K8
-   at d = 192 and K2, K9 at width 256 on the same graph, and K6 at H = 20
-   on its one-float path; K6 on column slices of wider arrays
+   copies (also at D = 3 and on column slices).  Then K1, K3, K6, K7 and
+   K8 at d = 192 and K2, K9 at width 256 on the same graph, and K6 at H
+   = 20 on its one-float path; K1 at d = 20 with an odd row stride, K2 at
+   an odd width on column slices, K6 on column slices of wider arrays
    (row-strided), K9 on column slices at H = 256 and 20 (float4 rows and
    one float per lane); each against its plain version and bitwise
    reproducible.
@@ -95,17 +96,44 @@ seconds since the script started):
    dual step in bf16, against the CPU's bf16 step to the JAX package's
    bf16 bounds; ``cli_bf16`` (after 8): ``cli infer --set compute.dtype=
    bfloat16`` on phase 5's dataset (exact contig) and a bf16 overfit run
-   that must learn (12 epochs of 8/8/8/1/1 K7/K3/K8/K6/K9).
+   that must learn (12 epochs of 8/8/8/1/1 K7/K3/K8/K6/K9, every launch
+   bf16).
+12. The bfloat16 mode of the layer-norm and norm-free models, through the
+   bf16 instantiations of K1 and K2, placed as phase 11's: in
+   ``kernels_bf16``, bf16 K1 (d = 64 on the column slices of a bf16
+   [N, 5d] projection; d = 192, 20 and 20 with an odd row stride) and K2
+   (Dp = 128 and 64; 256 and an odd width on column slices), both flips,
+   K1 bit-equal to its plain version on the card and K2 on CPU copies,
+   bitwise reproducible, timed beside their bf16 bounds, their plain
+   versions and, for K2, ``index_add_`` into float32 sums;
+   ``model_unfused_bf16`` (after ``model_bf16``): phase 3's models in
+   bf16, card vs the CPU's bf16 run (logit cosine > 0.9995,
+   probabilities within 0.02, AP within 5e-4), two card runs bitwise
+   equal, 8 K1 + 8 K2 per forward, all bf16 (none) or one bf16 K1 (layer
+   norm: float32 from its first norms on, as in the JAX package), the
+   forward's time and memory beside phase 3's; ``train_step_none`` (phase
+   6 for the norm-free model) and ``train_step_layer_bf16`` /
+   ``train_step_none_bf16``: phase 6's checks in bf16 against the CPU's
+   bf16 step to the JAX package's bf16 bounds, 16 K1 + 34 K2 per step, of
+   them bf16 16 + 34 (none) or 2 + 2 (layer norm), the step's time and
+   memory beside float32's; ``cli_unfused_bf16`` (after ``cli_bf16``):
+   ``cli train --set model.normalization=none --set compute.dtype=
+   bfloat16`` (overfit, 12 epochs, must learn; every launch bf16), then
+   ``cli infer`` with the model it saved on phase 5's dataset (exact
+   contig, 8 bf16 K1 + 8 bf16 K2).
 
 Then one JSON line with every kernel's numbers (``ms`` its device time,
 ``call_ms`` its back-to-back call time, at the widths of its main path;
 ``launches`` from the training path of phase 7 (K3, K6, K7, K8, K9 at the
 dual pass's width 128), for K1 and K2 from that of phase 8, for the
 one-sided walk from that of phase 10; every path's in
-``launches_by_path``; ``dtypes`` the element types it runs, and for K3,
-K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the bf16
-instantiation at width 128, launches from the bf16 overfit run of phase
-11), the ``nvidia-smi`` line, and the last line
+``launches_by_path`` (for phase 12's paths their bf16 launches, which
+are all of them); ``dtypes`` the element types it runs, and for K1, K2,
+K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
+bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
+run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
+launches from the bf16 overfit run of phase 12), the ``nvidia-smi`` line,
+and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero at once.
 """
@@ -212,6 +240,22 @@ TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 8, "k6_score_gate": 1,
 UNFUSED_FORWARD_LAUNCHES = {"k1_gather_gate": 8, "k2_aggregate": 8}
 UNFUSED_STEP_LAUNCHES = {"k1_gather_gate": 16, "k2_aggregate": 34}
 UNFUSED_INIT_SEED = 7              # init_weights seed of those models
+# their bf16 mode (compute.dtype=bfloat16): the norm-free model runs every
+# K1 and K2 in bf16; the layer-norm model turns float32 at its first norms
+# (LayerNorm's float32 weight and bias promote it, as in the JAX package),
+# so only its first layer's K1 runs in bf16, and per step that K1's
+# adjoint K2 too (tests/test_torch_bf16_unfused.py::test_dtype_flow)
+UNFUSED_FORWARD_BF16 = {"none": {"k1_gather_gate": 8, "k2_aggregate": 8},
+                        "layer": {"k1_gather_gate": 1}}
+UNFUSED_STEP_BF16 = {"none": {"k1_gather_gate": 16, "k2_aggregate": 34},
+                     "layer": {"k1_gather_gate": 2, "k2_aggregate": 2}}
+# card vs CPU in bf16 for those models (seeded init weights, golden graph):
+# logit cosine and largest probability change, set before any card run
+# from the port's CPU bf16 forward against its float32 one on the golden
+# subgraph (cosine 0.99999 / 0.99994, probabilities within 0.0009 /
+# 0.0026, AP 3e-5 / 7e-5 for layer norm / none) with a margin of 10x;
+# the AP within SCORE_AP
+UNFUSED_SCORE_COS, UNFUSED_SCORE_DP = 0.9995, 0.02
 # the model zoo: the four models directed and GatedGCN undirected, seeded
 # init weights.  Per eval forward the one-sided K2 walk runs once per
 # sum_into (GAT: two per layer, the softmax sums and the messages); per
@@ -367,6 +411,21 @@ def k9_cost(N: int, E: int, H: int, es: int = F4):
     the float32 [N, 2H] sums; one add per (edge, feature) and endpoint."""
     return (es * E * H + F4 * 2 * N * H + I4 * (E + 2 * (N + 1)),
             2.0 * E * H, 0.0)
+
+
+def k1_cost(N: int, E: int, d: int, es: int = F4):
+    """K1: read the used [N, 2d] halves of the projection, b3e, u/v
+    indices; write [E, 3d]; two adds per (edge, feature)."""
+    return (es * (2 * N * 2 * d + E * d + E * 3 * d) + I4 * 2 * E,
+            2.0 * E * d, 0.0)
+
+
+def k2_cost(N: int, E: int, Dp: int, es: int = F4):
+    """K2: read both payloads, both row-pointer arrays and one slot
+    permutation; write the two float32 [N, Dp] sums (at either element
+    size); one add per element."""
+    return (es * 2 * E * Dp + F4 * 2 * N * Dp + I4 * (E + 2 * (N + 1)),
+            2.0 * E * Dp, 0.0)
 
 
 def side_sum_cost(N: int, E: int, D: int, permuted: bool):
@@ -545,16 +604,6 @@ def check_k8(g, flip, args, what):
                 for p, q in zip(got[:4], ref[:4])), d_eo_diff)
 
 
-def check_sum_kernel(name, got, ref, again, what):
-    """K2: node sums against the plain version, bitwise reproducible;
-    returns the max |diff|."""
-    for a_, b_ in zip(got, ref):
-        check(within_sums(a_, b_), f"{name} {what} sums within tolerance")
-    check(all(__import__("torch").equal(p, q) for p, q in zip(got, again)),
-          f"{name} {what} bitwise reproducible")
-    return max(float((a_ - b_).abs().max()) for a_, b_ in zip(got, ref))
-
-
 def check_k9(g, flip, pay, what):
     """K9's [sum_u | sum_v] bit-equal to its plain version on CPU copies of
     the same tensors (``index_add_`` adds each node's terms in slot order
@@ -596,6 +645,139 @@ def check_side_sum(idx, csr, pay, n_nodes: int, what: str) -> float:
     check(torch.equal(got, K.k2_side_sum(idx, csr, pay)),
           f"K2 side sum {what}: bitwise reproducible")
     return diff
+
+
+def check_k1(g, flip, proj_u, proj_v, b3e, what: str) -> float:
+    """K1 bit-equal to its plain version on the card (the same rounded
+    adds; copies are copies) and bitwise reproducible; returns the max
+    |diff| (0)."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    u, v, _, _ = g.roles(flip)
+    got = K.k1_gather_gate(u, v, proj_u, proj_v, b3e)
+    ref = K.k1_gather_gate_plain(u, v, proj_u, proj_v, b3e)
+    torch.cuda.synchronize()
+    diff = float((got.float() - ref.float()).abs().max())
+    check(got.dtype == b3e.dtype and diff == 0.0,
+          f"K1 {what} flip={flip} diff {diff}")
+    check(torch.equal(got, K.k1_gather_gate(u, v, proj_u, proj_v, b3e)),
+          f"K1 {what} flip={flip} bitwise reproducible")
+    return diff
+
+
+def check_k2_cpu(g, flip, pay_u, pay_v, what: str):
+    """K2's float32 sums bit-equal to its plain version run on CPU copies
+    (``index_add_`` adds each node's terms in slot order there, as the
+    kernel does), within the node-sum tolerance of the plain version on
+    the card (atomic adds) and bitwise reproducible; returns the max |diff|
+    against the CPU plain version (0) and the card's."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    u, v, v_csr, u_csr = g.roles(flip)
+    got = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+    card = K.k2_aggregate_plain(u, v, pay_u, pay_v, g.n_nodes)
+    torch.cuda.synchronize()
+    cpu = K.k2_aggregate_plain(u.cpu(), v.cpu(), pay_u.cpu(), pay_v.cpu(),
+                               g.n_nodes)
+    check(all(t.dtype == torch.float32 for t in got),
+          f"K2 {what} flip={flip} float32 sums")
+    diff = max(float((a_.cpu() - b_).abs().max()) for a_, b_ in zip(got, cpu))
+    check(diff == 0.0, f"K2 {what} flip={flip} vs CPU plain: diff {diff}")
+    check(all(within_sums(a_, b_) for a_, b_ in zip(got, card)),
+          f"K2 {what} flip={flip} vs card plain")
+    again = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+    check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+          f"K2 {what} flip={flip} bitwise reproducible")
+    return diff, max(float((a_ - b_).abs().max()) for a_, b_ in zip(got, card))
+
+
+def unfused_kernels(g, randn, bf16: bool = False) -> dict:
+    """K1 (d = 64, on the column slices of an [N, 5d] projection, as the
+    model calls it) and K2 (Dp = 128 and 64: the gated mean and K1's
+    adjoint, the predictor gathers' adjoint) in float32 or (``bf16``)
+    their bf16 instantiations, at both flips: against their plain versions
+    (K1 bit-equal on the card, K2 on CPU copies), bitwise reproducible,
+    timed beside their bounds, their plain versions and, for K2,
+    ``index_add_`` into float32 sums over the stacked [u; v+N] rows (bf16
+    payloads cast to float32 inside the timed call).  Then K1 at d =
+    WIDE_D (16-byte words), ODD_H (8-byte words in bf16) and ODD_H with an
+    odd row stride (one element per thread), K2 at WIDE_PAY (two column
+    chunks) and at ODD_H + 1 on column slices with an odd row stride, not
+    timed."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    dt, es = (torch.bfloat16, BF2) if bf16 else (torch.float32, F4)
+    N, E, d = g.n_nodes, g.n_edges, 64
+    proj = randn(N, 5 * d).to(dt)
+    pu, pv = proj[:, :2 * d], proj[:, 2 * d:4 * d]
+    b3e = randn(E, d).to(dt)
+    what = f"{'bf16 ' if bf16 else ''}d={d}"
+    nbytes, *ops = k1_cost(N, E, d, es)
+    b_ms, b_by = bound(nbytes, *ops)
+    k1 = {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    for flip in (False, True):
+        u, v, _, _ = g.roles(flip)
+        diff = check_k1(g, flip, pu, pv, b3e, what)
+        t = kernel_times(lambda: K.k1_gather_gate(u, v, pu, pv, b3e))
+        k1[f"flip={flip}"] = {
+            "max_abs_diff": diff, **t,
+            "achieved_gbps": nbytes / t["device_ms"] / 1e6,
+            "plain_ms": cuda_ms(lambda: K.k1_gather_gate_plain(u, v, pu, pv,
+                                                               b3e))}
+    layouts = {}
+    for dd, pad in ((WIDE_D, 0), (ODD_H, 0), (ODD_H, 1)):
+        pw, bw = randn(N, 5 * dd + pad).to(dt), randn(E, dd).to(dt)
+        what = f"{'bf16 ' if bf16 else ''}d={dd} row stride {5 * dd + pad}"
+        layouts[what] = max(check_k1(g, flip, pw[:, :2 * dd],
+                                     pw[:, 2 * dd:4 * dd], bw, what)
+                            for flip in (False, True))
+    k1.update(layouts=layouts, bitwise_reproducible=True,
+              tolerance={"atol": 0.0})
+
+    k2 = {}
+    for width in (2 * d, d):
+        pay_u, pay_v = randn(E, width).to(dt), randn(E, width).to(dt)
+        pay2 = torch.cat([pay_u, pay_v])
+        acc = torch.zeros(2 * N, width, device=pay_u.device)
+        nbytes, *ops = k2_cost(N, E, width, es)
+        b_ms, b_by = bound(nbytes, *ops)
+        r = {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        for flip in (False, True):
+            u, v, v_csr, u_csr = g.roles(flip)
+            diff, diff_card = check_k2_cpu(
+                g, flip, pay_u, pay_v, f"{'bf16 ' if bf16 else ''}Dp={width}")
+            uv = torch.cat([u.long(), v.long() + N])
+            t = kernel_times(lambda: K.k2_aggregate(u, v, v_csr, u_csr,
+                                                    pay_u, pay_v))
+            r[f"flip={flip}"] = {
+                "max_abs_diff": diff, "max_abs_diff_vs_card_plain": diff_card,
+                **t, "achieved_gbps": nbytes / t["device_ms"] / 1e6,
+                "plain_ms": cuda_ms(lambda: K.k2_aggregate_plain(
+                    u, v, pay_u, pay_v, N)),
+                "library_ms": cuda_ms(lambda: acc.zero_().index_add_(
+                    0, uv, K.wide(pay2)))}
+        k2[f"Dp={width}"] = r
+    layouts = {}
+    for width, pad in ((WIDE_PAY, 0), (ODD_H + 1, 1)):
+        pay_u = randn(E, width + pad).to(dt)[:, :width]
+        pay_v = randn(E, width).to(dt)
+        what = (f"{'bf16 ' if bf16 else ''}Dp={width} u row stride "
+                f"{width + pad}")
+        layouts[what] = max(check_k2_cpu(g, flip, pay_u, pay_v, what)[0]
+                            for flip in (False, True))
+    k2.update(layouts=layouts, bitwise_reproducible=True,
+              tolerance={"vs_cpu_plain_atol": 0.0,
+                         "vs_card_plain_atol": SUM_ATOL,
+                         "vs_card_plain_rtol": SUM_RTOL},
+              library_call="torch.Tensor.index_add_ on [u; v+N], "
+                           "[pay_u; pay_v] (bf16: cast to float32)")
+    return {"k1_gather_gate": k1, "k2_aggregate": k2}
 
 
 def bf16_affine(d: int, randn, rand):
@@ -728,7 +910,7 @@ def phase_kernels_bf16(seed: int, dev):
     """The bf16 instantiations of K3, K6, K7, K8 and K9 against their bf16
     plain versions: timed at the golden graph's shapes (d = H = 64, both
     flips; the dual pass's 128, flip=False), then the width and layout
-    checks."""
+    checks; then those of K1 and K2 (``unfused_kernels``)."""
     import torch
 
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
@@ -746,11 +928,12 @@ def phase_kernels_bf16(seed: int, dev):
     out = {"d64": width_kernel_times(g, 64, randn, rand, (False, True),
                                      bf16=True),
            "dual": width_kernel_times(g, DUAL_D, randn, rand, bf16=True),
-           "wide": bf16_wide_checks(g, randn, rand)}
+           "wide": bf16_wide_checks(g, randn, rand),
+           **unfused_kernels(g, randn, bf16=True)}
     emit("kernels_bf16", graph={"nodes": g.n_nodes, "edges": g.n_edges},
          seed=seed, **out,
-         tolerance={"edges": "one bf16 spacing (2^-7 of the value); K6 and "
-                             "K8's x exact",
+         tolerance={"edges": "one bf16 spacing (2^-7 of the value); K1, "
+                             "K6 and K8's x exact",
                     "sums_atol": SUM_ATOL,
                     "sums_rtol": SUM_RTOL + BF16_SPACING,
                     "sum64_rtol_of_magnitudes": SUM64_RTOL,
@@ -924,67 +1107,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
               library_call="torch.Tensor.index_add_ on [u; v+N], [pay; pay]")
     out["k9_aggregate"] = k9
 
-    # ---- the layer-norm model's kernels: K1 on the [N, 5d] projection's
-    # column slices, as the model calls it
-    k1 = {}
-    for flip in (False, True):
-        u, v, _, _ = g.roles(flip)
-        got = K.k1_gather_gate(u, v, proj_u, proj_v, b3e)
-        ref = K.k1_gather_gate_plain(u, v, proj_u, proj_v, b3e)
-        torch.cuda.synchronize()
-        diff = float((got - ref).abs().max())
-        check(diff <= EDGE_ATOL, f"K1 flip={flip} diff {diff}")
-        check(torch.equal(got, K.k1_gather_gate(u, v, proj_u, proj_v, b3e)),
-              f"K1 flip={flip} bitwise reproducible")
-        k1[f"flip={flip}"] = {
-            "max_abs_diff": diff,
-            **kernel_times(lambda: K.k1_gather_gate(u, v, proj_u, proj_v,
-                                                    b3e)),
-            "plain_ms": cuda_ms(lambda: K.k1_gather_gate_plain(
-                u, v, proj_u, proj_v, b3e))}
-    # read the used [N, 2d] halves of the projection, b3e, u/v indices;
-    # write [E, 3d]; two adds per (edge, feature)
-    k1_bytes = F4 * (2 * N * 2 * d + E * d + E * 3 * d) + I4 * 2 * E
-    k1_bound, k1_by = bound(k1_bytes, 2.0 * E * d)
-    k1.update(bound_ms=k1_bound, bound_by=k1_by, bytes=k1_bytes,
-              tolerance={"atol": EDGE_ATOL})
-    out["k1_gather_gate"] = k1
-
-    # K2 at Dp = 2d (the gated mean, K1's adjoint) and Dp = d (the
-    # predictor gathers' adjoint)
-    k2 = {}
-    for width in (2 * d, d):
-        pay_u, pay_v = randn(E, width), randn(E, width)
-        pay2 = torch.cat([pay_u, pay_v])
-        acc = torch.zeros(2 * N, width, device=dev)
-        r = {}
-        for flip in (False, True):
-            u, v, v_csr, u_csr = g.roles(flip)
-            diff = check_sum_kernel(
-                "K2", K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
-                K.k2_aggregate_plain(u, v, pay_u, pay_v, N),
-                K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
-                f"Dp={width} flip={flip}")
-            # the one PyTorch call for the same sums, as for K9
-            uv = torch.cat([u.long(), v.long() + N])
-            r[f"flip={flip}"] = {
-                "max_abs_diff": diff,
-                **kernel_times(lambda: K.k2_aggregate(
-                    u, v, v_csr, u_csr, pay_u, pay_v)),
-                "plain_ms": cuda_ms(lambda: K.k2_aggregate_plain(
-                    u, v, pay_u, pay_v, N)),
-                "library_ms": cuda_ms(lambda: acc.zero_().index_add_(
-                    0, uv, pay2))}
-        # read both payloads, both row-pointer arrays and one slot
-        # permutation; write the two [N, Dp] sums; one add per element
-        k2_bytes = F4 * (2 * E * width + 2 * N * width) + I4 * (E + 2 * (N + 1))
-        k2_bound, k2_by = bound(k2_bytes, 2.0 * E * width)
-        r.update(bound_ms=k2_bound, bound_by=k2_by, bytes=k2_bytes)
-        k2[f"Dp={width}"] = r
-    k2.update(tolerance={"sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL},
-              library_call="torch.Tensor.index_add_ on [u; v+N], "
-                           "[pay_u; pay_v]")
-    out["k2_aggregate"] = k2
+    # ---- the layer-norm and norm-free model's kernels, K1 and K2
+    out.update(unfused_kernels(g, randn))
 
     # ---- the dual symmetry pass: K3, K7, K8 at d = 2 * 64 and K6, K9 at
     # H = 2 * 64, flip=False, as a batch-norm train step launches them
@@ -1022,9 +1146,9 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     out["k2_side_sum"] = side
 
     # ---- widths above 128: K3, K6, K7, K8 at d = WIDE_D (two column
-    # chunks) and K2, K9 at WIDE_PAY, and K6 at ODD_H with odd row strides
-    # (the one-float path), each against its plain version and bitwise
-    # reproducible, both flips; not timed
+    # chunks) and K9 at WIDE_PAY (K2's are unfused_kernels'), and K6 at
+    # ODD_H with odd row strides (the one-float path), each against its
+    # plain version and bitwise reproducible, both flips; not timed
     dw, wp, ho = WIDE_D, WIDE_PAY, ODD_H
     # K6's operands as column slices: row strides 2 * dw + 8 and dw + 8
     # (float4 rows), 2 * ho + 1 and ho + 1 (one float per lane)
@@ -1036,15 +1160,13 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     b3w, e_inw, d_e_outw = randn(E, dw), randn(E, dw), randn(E, dw)
     bnw = bn_rows(dw, randn, rand)
     d_suw, d_svw = randn(N, 2 * dw), randn(N, 2 * dw)
-    pay_u, pay_v = randn(E, wp), randn(E, wp)
     # K9's payloads: dense at H = WIDE_PAY, and column slices at WIDE_PAY
     # and ODD_H with row strides H + 8 (float4 rows) and H + 1 (one float
     # per lane)
-    k9_pays = [pay_u] + [randn(E, h + pad)[:, :h] for h in (wp, ho)
-                         for pad in (8, 1)]
+    k9_pays = [randn(E, wp)] + [randn(E, h + pad)[:, :h] for h in (wp, ho)
+                                for pad in (8, 1)]
     wide = {"d": dw, "width": wp, "k6_odd_h": ho}
     for flip in (False, True):
-        u, v, v_csr, u_csr = g.roles(flip)
         pu, pv = projw[:, :2 * dw], projw[:, 2 * dw:4 * dw]
         r = {}
         _, _, r["k3_max_abs_diff"] = check_k3(g, flip, pu, pv, b3w, e_inw,
@@ -1057,11 +1179,6 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         r["k8_max_abs_diff"], _ = check_k8(
             g, flip, (d_suw, d_svw, pu, pv, b3w, e_inw, d_e_outw, bnw),
             f"d={dw}")
-        r["k2_max_abs_diff"] = check_sum_kernel(
-            "K2", K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
-            K.k2_aggregate_plain(u, v, pay_u, pay_v, N),
-            K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v),
-            f"Dp={wp} flip={flip}")
         r["k9_max_abs_diff"] = max(
             check_k9(g, flip, p, f"H={p.shape[1]} stride {p.stride(0)}")[0]
             for p in k9_pays)
@@ -1073,9 +1190,11 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     return out
 
 
-def scores_agree(lo, ref, labels) -> dict:
+def scores_agree(lo, ref, labels, bounds=None) -> dict:
     """bf16 logits against a reference run: cosine, the largest probability
-    change and the AP difference (SCORE_*); returns them."""
+    change and the AP difference, each within ``bounds`` (min cosine, max
+    probability change, max AP change; by default SCORE_*); returns
+    them."""
     import numpy as np
 
     lo, ref = lo.astype(np.float64), ref.astype(np.float64)
@@ -1083,22 +1202,25 @@ def scores_agree(lo, ref, labels) -> dict:
     dp = float(np.abs(1 / (1 + np.exp(-lo)) - 1 / (1 + np.exp(-ref))).max())
     d_ap = abs(average_precision(1 / (1 + np.exp(-lo)), labels)
                - average_precision(1 / (1 + np.exp(-ref)), labels))
-    check(cos > SCORE_COS and dp < SCORE_DP and d_ap < SCORE_AP,
+    min_cos, max_dp, max_ap = bounds or (SCORE_COS, SCORE_DP, SCORE_AP)
+    check(cos > min_cos and dp < max_dp and d_ap < max_ap,
           f"bf16 logits vs reference: cosine {cos}, probability {dp}, "
           f"AP {d_ap}")
     return {"cosine": cos, "max_abs_prob_diff": dp, "ap_diff": d_ap}
 
 
 def card_vs_cpu_forward(graph, new_model, dev, per_forward: dict,
-                        what: str, model_cfg=None, dtype=None):
+                        what: str, model_cfg=None, dtype=None,
+                        per_forward_bf16=None, score_bounds=None):
     """Scores ``graph`` with ``new_model(device)`` on the CPU and on the
     card (a zoo model of ``model_cfg`` on its processor graph; the
     SymGatedGCN at compute dtype ``dtype`` if given): two card forwards
     bitwise equal, each launching the kernels of ``per_forward`` that often
-    and no other; finite logits within LOGIT_ATOL + LOGIT_RTOL·|x| of the
-    CPU run (in bf16: ``scores_agree`` against the graph's labels).
-    Returns (card logits, CPU logits, a summary with the forward time and
-    peak memory)."""
+    and no other, of them those of ``per_forward_bf16`` (none by default)
+    in their bf16 instantiation; finite logits within LOGIT_ATOL +
+    LOGIT_RTOL·|x| of the CPU run (in bf16: ``scores_agree`` against the
+    graph's labels, within ``score_bounds``).  Returns (card logits, CPU
+    logits, a summary with the forward time and peak memory)."""
     import numpy as np
     import torch
 
@@ -1130,9 +1252,13 @@ def card_vs_cpu_forward(graph, new_model, dev, per_forward: dict,
         runs = [model(*args, **kw).reshape(-1) for _ in range(2)]
         torch.cuda.synchronize()
         counts = K.launch_counts()
+        counts_bf16 = K.launch_counts(torch.bfloat16)
         check(counts == expected_launches(**{k: 2 * n for k, n
                                              in per_forward.items()}),
               f"{what}: per-forward launches (2 forwards): {counts}")
+        check(counts_bf16 == expected_launches(**{
+            k: 2 * n for k, n in (per_forward_bf16 or {}).items()}),
+            f"{what}: per-forward bf16 launches (2 forwards): {counts_bf16}")
         check(torch.equal(runs[0], runs[1]),
               f"{what}: two card runs bitwise equal")
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1144,12 +1270,14 @@ def card_vs_cpu_forward(graph, new_model, dev, per_forward: dict,
     dlo = np.abs(lo - lo_cpu)
     agree = {}
     if dtype == torch.bfloat16:
-        agree = {"vs_cpu": scores_agree(lo, lo_cpu, graph.y)}
+        agree = {"vs_cpu": scores_agree(lo, lo_cpu, graph.y, score_bounds)}
     else:
         check(bool((dlo <= LOGIT_ATOL + LOGIT_RTOL * np.abs(lo_cpu)).all()),
               f"{what}: logits vs CPU run (max {dlo.max()})")
     return lo, lo_cpu, {**agree,
         "launches_per_forward": {k: n // 2 for k, n in counts.items()},
+        "launches_per_forward_bf16": {k: n // 2
+                                      for k, n in counts_bf16.items()},
         "bitwise_reproducible": True,
         "max_abs_logit_diff_vs_cpu": float(dlo.max()),
         "logit_range": [float(lo.min()), float(lo.max())],
@@ -1203,7 +1331,8 @@ def phase_model_bf16(dev, fwd32: dict):
     lo, _, fwd = card_vs_cpu_forward(
         graph, lambda device: load_model(params, state, Config(), device),
         dev, {"k3_edge_stage": 8, "k6_score_gate": 1}, "batch norm bf16",
-        dtype=torch.bfloat16)
+        dtype=torch.bfloat16,
+        per_forward_bf16={"k3_edge_stage": 8, "k6_score_gate": 1})
     ap = average_precision(1.0 / (1.0 + np.exp(-lo.astype(np.float64))),
                            graph.y)
     check(abs(ap - JAX_GOLDEN_AP_BF16) < AP_TOL,
@@ -1241,6 +1370,45 @@ def phase_model_unfused(dev):
          graph={"nodes": graph.num_nodes, "edges": graph.num_edges},
          weights=f"init_weights({UNFUSED_INIT_SEED})",
          tolerance={"logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL},
+         **out)
+    return out
+
+
+def phase_model_unfused_bf16(dev, fwd32: dict):
+    """``model_unfused`` at compute.dtype=bfloat16: the golden graph, the
+    layer-norm and the norm-free model at full width and depth with the
+    same seeded weights, card vs the port's CPU bf16 run (cosine,
+    probabilities, AP), two card runs bitwise equal, 8 K1 and 8 K2 per
+    forward of which bf16 every one (none) or the first layer's K1 (layer
+    norm), the forward's time and memory beside ``model_unfused``'s float32
+    ones (``fwd32``)."""
+    import torch
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.models import SymGatedGCN
+
+    graph = AssemblyGraph.load(GOLDEN)
+    out = {}
+    for norm in ("layer", "none"):
+        cfg = Config()
+        cfg.model.normalization = norm
+
+        def new_model(device):
+            model = SymGatedGCN.from_config(cfg.model)
+            return model.init_weights(UNFUSED_INIT_SEED).to(device)
+
+        _, _, fwd = card_vs_cpu_forward(
+            graph, new_model, dev, UNFUSED_FORWARD_LAUNCHES, f"{norm} bf16",
+            dtype=torch.bfloat16, per_forward_bf16=UNFUSED_FORWARD_BF16[norm],
+            score_bounds=(UNFUSED_SCORE_COS, UNFUSED_SCORE_DP, SCORE_AP))
+        out[norm] = {**fwd, "float32": {k: fwd32[norm][k] for k in (
+            "forward_ms", "max_memory_allocated_mb")}}
+    emit("model_unfused_bf16",
+         graph={"nodes": graph.num_nodes, "edges": graph.num_edges},
+         weights=f"init_weights({UNFUSED_INIT_SEED})", dtype="bfloat16",
+         tolerance={"score_cosine": UNFUSED_SCORE_COS,
+                    "score_prob": UNFUSED_SCORE_DP, "score_ap": SCORE_AP},
          **out)
 
 
@@ -1291,15 +1459,17 @@ def _step_result(model, loss, logits):
 
 
 def train_step_checks(dev, cfg, new_model, want: dict, what: str,
-                      dual_vs_pair: bool = False) -> dict:
+                      dual_vs_pair: bool = False, want_bf16=None) -> dict:
     """Full-width training steps of the model ``new_model(device)`` builds
     for ``cfg``: one step on the card against the port's CPU step on the
     golden subgraph (dropout 0; loss, every gradient, the buffers); with
     ``dual_vs_pair`` the same card step (``forward_dual``) against the
     symmetry loss of ``forward_pair`` on the card.  On the whole golden
     graph as one unit (dropout 0.2): two steps from one state bitwise
-    equal, exactly the launches ``want`` per step, no host synchronisation
-    inside a step, the step time and peak memory.  Returns a summary."""
+    equal, exactly the launches ``want`` per step, of them exactly
+    ``want_bf16`` (by default none) in their bf16 instantiation, no host
+    synchronisation inside a step, the step time and peak memory.  Returns
+    a summary."""
     import numpy as np
     import torch
 
@@ -1417,8 +1587,11 @@ def train_step_checks(dev, cfg, new_model, want: dict, what: str,
     K.reset_launch_counts()
     a, (model, opt, ex, gen) = one_step(golden, dev, 5)
     per_step = K.launch_counts()
+    per_step_bf16 = K.launch_counts(torch.bfloat16)
     b, _ = one_step(golden, dev, 5)
     check(per_step == want, f"{what}: launches per step {per_step}")
+    check(per_step_bf16 == (want_bf16 or expected_launches()),
+          f"{what}: bf16 launches per step {per_step_bf16}")
     for key in ("loss", "logits"):
         check(torch.equal(a[key], b[key]),
               f"{what}: two card steps: {key} bitwise")
@@ -1439,7 +1612,8 @@ def train_step_checks(dev, cfg, new_model, want: dict, what: str,
     step_ms = cuda_ms(lambda: train_step(model, opt, ex, 4.0, cfg, gen),
                       reps=5, n=3, warmup=2)
     out.update(graph={"nodes": golden.num_nodes, "edges": golden.num_edges},
-               launches_per_step=per_step, bitwise_reproducible=True,
+               launches_per_step=per_step,
+               launches_per_step_bf16=per_step_bf16, bitwise_reproducible=True,
                host_synchronisations_in_step=0, step_ms=step_ms,
                max_memory_allocated_mb=torch.cuda.max_memory_allocated(dev)
                / 2**20)
@@ -1447,11 +1621,14 @@ def train_step_checks(dev, cfg, new_model, want: dict, what: str,
 
 
 def phase_train_step(dev, normalization: str = "batch",
-                     dtype: str = "float32"):
+                     dtype: str = "float32", f32=None):
     """Full-width SymGatedGCN training steps (``train_step_checks``), from
     the shipped weights (batch norm: the dual pass, in float32 also held
-    against the two sequential passes on the card; in bf16 at
-    compute.dtype=bfloat16) or seeded init weights (layer norm)."""
+    against the two sequential passes on the card) or seeded init weights
+    (layer norm, none), at compute dtype ``dtype`` (in bf16 every launch
+    of the batch-norm step is bf16, those of the other models as
+    UNFUSED_STEP_BF16 says); with ``f32`` (this phase's float32 summary)
+    the step time and memory are emitted beside float32's."""
     from gnnome_tpu_torch.config import Config
     from gnnome_tpu_torch.infer import load_model
     from gnnome_tpu_torch.models import SymGatedGCN, load_model_weights
@@ -1459,25 +1636,32 @@ def phase_train_step(dev, normalization: str = "batch",
     cfg = Config()
     cfg.model.normalization = normalization
     cfg.compute.dtype = dtype
+    bf16 = dtype == "bfloat16"
     if normalization == "batch":
         params, state = load_model_weights(WEIGHTS)
         weights = os.path.relpath(WEIGHTS, ROOT)
         want = expected_launches(**TRAIN_STEP_LAUNCHES)
+        want_bf16 = want if bf16 else None
 
         def new_model(device):
             return load_model(params, state, cfg, device)
     else:
         weights = f"init_weights({UNFUSED_INIT_SEED})"
         want = expected_launches(**UNFUSED_STEP_LAUNCHES)
+        want_bf16 = (expected_launches(**UNFUSED_STEP_BF16[normalization])
+                     if bf16 else None)
 
         def new_model(device):
             model = SymGatedGCN.from_config(cfg.model)
             return model.init_weights(UNFUSED_INIT_SEED).to(device)
 
-    bf16 = dtype == "bfloat16"
     out = train_step_checks(dev, cfg, new_model, want,
                             f"{normalization} {dtype}",
-                            dual_vs_pair=normalization == "batch" and not bf16)
+                            dual_vs_pair=normalization == "batch" and not bf16,
+                            want_bf16=want_bf16)
+    if f32 is not None:
+        out["float32"] = {k: f32[k] for k in ("step_ms",
+                                              "max_memory_allocated_mb")}
     tol = ({"loss_rel": BF16_LOSS_REL, "grad_cosine": BF16_GRAD_COS,
             "grad_element": BF16_GRAD_ELEM, "state_atol": BF16_STATE_ATOL,
             "state_rtol": BF16_STATE_RTOL} if bf16 else
@@ -1669,7 +1853,10 @@ def overfit_run(root: str, normalization: str = "batch",
     1e-3, compute dtype ``dtype``) under ``root``, which must learn: the
     last loss under OVERFIT_LOSS_DROP times the first, the saved model's AP
     (scored at ``dtype``) above OVERFIT_MIN_AP.  Returns (best-model path,
-    summary, the launch counts read just after ``cli train``)."""
+    summary (with the bf16 launch counts read just after ``cli train``),
+    the launch counts read just after ``cli train``)."""
+    import torch
+
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.config import Config
     from gnnome_tpu_torch.graphs import synthetic_assembly_graph
@@ -1693,6 +1880,7 @@ def overfit_run(root: str, normalization: str = "batch",
                      "--set", f"model.normalization={normalization}",
                      "--set", f"compute.dtype={dtype}"])
     counts = K.launch_counts()
+    counts_bf16 = K.launch_counts(torch.bfloat16)
     wall_s = time.perf_counter() - t0
     with open(os.path.join(root, "ckpt", f"log_{name}_seed1.jsonl")) as f:
         losses = [json.loads(line)["train/loss"] for line in f]
@@ -1705,7 +1893,8 @@ def overfit_run(root: str, normalization: str = "batch",
     check(ap > OVERFIT_MIN_AP, f"{name} AP {ap}")
     return best, {"graph": dict(OVERFIT_GRAPH), "nodes": g.num_nodes,
                   "edges": g.num_edges, "dtype": dtype, "losses": losses,
-                  "ap": ap, "wall_s": wall_s}, counts
+                  "ap": ap, "wall_s": wall_s,
+                  "launches_bf16": counts_bf16}, counts
 
 
 def phase_cli_bf16():
@@ -1744,8 +1933,10 @@ def phase_cli_bf16():
     K.reset_launch_counts()
     _, overfit, train_counts = overfit_run(root, dtype="bfloat16")
     check(train_counts == expected_launches(**{
-        k: 12 * n for k, n in TRAIN_STEP_LAUNCHES.items()}),
-        f"bf16 training launches {train_counts}")
+        k: 12 * n for k, n in TRAIN_STEP_LAUNCHES.items()})
+        == overfit["launches_bf16"],
+        f"bf16 training launches {train_counts}, of them bf16 "
+        f"{overfit['launches_bf16']}")
     emit("cli_bf16", overfit=overfit, train_launches=train_counts,
          infer={"wall_s": wall_s, "timing_s": summary["timing"],
                 "num_contigs": len(contigs), "longest_contig": len(top.seq),
@@ -1753,6 +1944,64 @@ def phase_cli_bf16():
                 "launches": infer_counts},
          tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
     return train_counts, infer_counts
+
+
+def phase_cli_unfused_bf16():
+    """The norm-free model's bf16 paths, each on the card with the counters
+    set to 0 just before it: ``cli train --set model.normalization=none
+    --set compute.dtype=bfloat16`` on the overfit dataset (12 epochs, lr
+    1e-3, every K1 and K2 in bf16), which must learn as phase 7's run
+    must, then ``cli infer`` with the model it saved on phase 5's dataset
+    (8 bf16 K1 and 8 bf16 K2), whose longest contig must be an exact
+    substring of the genome.  Returns the bf16 launch counts of the two
+    paths."""
+    import torch
+
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
+
+    root = os.path.join(WORK, "none_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    K.reset_launch_counts()
+    best, overfit, train_counts = overfit_run(root, "none", "bfloat16")
+    want = expected_launches(**{k: 12 * n for k, n
+                                in UNFUSED_STEP_LAUNCHES.items()})
+    check(train_counts == want == overfit["launches_bf16"],
+          f"none bf16 training launches {train_counts}, of them bf16 "
+          f"{overfit['launches_bf16']}")
+
+    ds, genome = make_infer_dataset(os.path.join(root, "ds"))
+    savedir = os.path.join(ds, "hifiasm")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = cli.main(["infer", "--data", ds, "--asm", "hifiasm",
+                        "--out", savedir, "--model", best,
+                        "--set", f"decode.len_threshold={INFER_LEN_THRESHOLD}",
+                        "--set", "model.normalization=none",
+                        "--set", "compute.dtype=bfloat16"])
+    wall_s = time.perf_counter() - t0
+    infer_counts = K.launch_counts()
+    infer_bf16 = K.launch_counts(torch.bfloat16)
+    check(summary["device"].startswith("cuda"), "infer ran on the card")
+    check(infer_counts == expected_launches(**UNFUSED_FORWARD_LAUNCHES)
+          == infer_bf16,
+          f"none bf16 eval-path launches {infer_counts}, of them bf16 "
+          f"{infer_bf16}")
+    contigs = list(read_fastx(os.path.join(savedir, "assembly",
+                                           "0_assembly.fasta")))
+    top = max(contigs, key=lambda c: len(c.seq))
+    exact = top.seq in genome or top.seq in reverse_complement(genome)
+    check(exact, "none bf16: longest contig is an exact substring")
+    check(len(top.seq) >= INFER_LEN_THRESHOLD, "longest contig length")
+    emit("cli_unfused_bf16", normalization="none", dtype="bfloat16",
+         overfit=overfit, train_launches=train_counts,
+         infer={"wall_s": wall_s, "timing_s": summary["timing"],
+                "num_contigs": len(contigs), "longest_contig": len(top.seq),
+                "exact_substring": exact, "genome_len": len(genome),
+                "launches": infer_counts, "launches_bf16": infer_bf16},
+         tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
+    return overfit["launches_bf16"], infer_bf16
 
 
 def phase_cli_layer():
@@ -1817,17 +2066,23 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     phase_env()
     fwd32 = phase_model(dev)
-    phase_model_unfused(dev)
+    unfused32 = phase_model_unfused(dev)
     k = phase_kernels(args.seed, dev, fwd32["launches_per_forward"])
     kb = phase_kernels_bf16(args.seed, dev)
     paths = {"infer": phase_infer()}
     phase_model_bf16(dev, fwd32)
+    phase_model_unfused_bf16(dev, unfused32)
     phase_train_step(dev)
-    phase_train_step(dev, "layer")
+    steps32 = {norm: phase_train_step(dev, norm) for norm in ("layer", "none")}
     phase_train_step(dev, "batch", "bfloat16")
+    for norm in ("layer", "none"):
+        phase_train_step(dev, norm, "bfloat16", steps32[norm])
     paths["train"] = phase_train()
     paths["train_layer"], paths["infer_layer"] = phase_cli_layer()
     paths["train_bf16"], paths["infer_bf16"] = phase_cli_bf16()
+    # (the bf16 launches of these two paths: all of their launches)
+    paths["train_none_bf16"], paths["infer_none_bf16"] = (
+        phase_cli_unfused_bf16())
     phase_zoo(dev)
     paths["train_zoo"], paths["infer_zoo"] = phase_cli_zoo()
 
@@ -1872,6 +2127,25 @@ def main(argv=None) -> int:
     def flips(r):
         return [r[f]["max_abs_diff"] for f in ("flip=False", "flip=True")]
 
+    def unfused_errs(r) -> list:
+        """The largest errors of ``unfused_kernels``' K1 or K2 summary."""
+        widths = [r] if "flip=False" in r else [r["Dp=128"], r["Dp=64"]]
+        return sum((flips(w) for w in widths), []) + list(
+            r["layouts"].values())
+
+    def unfused_bf16_row(name, r, width) -> dict:
+        """K1's or K2's bf16 instantiation at the norm-free model's widths,
+        flip=False, launches from its bf16 training path (the overfit run
+        of ``cli_unfused_bf16``)."""
+        errs = unfused_errs(r)
+        r = r if "flip=False" in r else r[f"Dp={width}"]
+        t = r["flip=False"]
+        return {"launches": paths["train_none_bf16"][name],
+                "max_abs_err": max(errs), "width": width,
+                "ms": t["device_ms"], "call_ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": t.get("library_ms")}
+
     def at_d64(name):
         r = k[name]
         return {**r["flip=False"], "bound_ms": r["bound_ms"],
@@ -1883,13 +2157,20 @@ def main(argv=None) -> int:
     # phase line); the one-sided walk at D = 64 into dst (GCN's sums)
     k2 = k["k2_aggregate"]
     side = k["k2_side_sum"]
+    k1b, k2b = kb["k1_gather_gate"], kb["k2_aggregate"]
+    both = ["float32", "bfloat16"]
     rows = [
-        row("k1_gather_gate", "k1_gather_gate.cu", 207, "train_layer",
-            at_d64("k1_gather_gate"), flips(k["k1_gather_gate"]), 64),
-        row("k2_aggregate", "k2_aggregate.cu", 263, "train_layer",
-            {**k2["Dp=128"]["flip=False"], **{
-                x: k2["Dp=128"][x] for x in ("bound_ms", "bound_by")}},
-            flips(k2["Dp=128"]) + flips(k2["Dp=64"]), 128),
+        {**row("k1_gather_gate", "k1_gather_gate.cu", 207, "train_layer",
+               at_d64("k1_gather_gate"), unfused_errs(k["k1_gather_gate"]),
+               64),
+         "dtypes": both,
+         "bfloat16": unfused_bf16_row("k1_gather_gate", k1b, 64)},
+        {**row("k2_aggregate", "k2_aggregate.cu", 263, "train_layer",
+               {**k2["Dp=128"]["flip=False"], **{
+                   x: k2["Dp=128"][x] for x in ("bound_ms", "bound_by")}},
+               unfused_errs(k2), 128),
+         "dtypes": both,
+         "bfloat16": unfused_bf16_row("k2_aggregate", k2b, 128)},
         row("k2_side_sum", "k2_aggregate.cu", 263, "train_zoo",
             side["D=64 side=dst"],
             [r["max_abs_diff"] for r in side.values()

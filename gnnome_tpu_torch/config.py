@@ -5,8 +5,8 @@ reproduce the reference's shipped values, reference
 configs/hyperparameters.py:3-52, configs/config.py:1-14), so ``--set
 section.key=value`` overrides carry over between the two packages.  The one
 difference is ``ComputeConfig``: it holds only ``device`` (``cuda`` | ``cpu``)
-and ``dtype`` (``float32`` | ``bfloat16``, the JAX package's compute dtype;
-bfloat16 for the batch-norm SymGatedGCN only).  The JAX package's backend,
+and ``dtype`` (``float32`` | ``bfloat16``, the JAX package's compute dtype,
+for the SymGatedGCN at every normalisation).  The JAX package's backend,
 mesh, matmul-precision, padding, bucket, remat, scheduler and
 buffer-donation knobs have no meaning here (the tensor's device chooses
 kernel or plain version; edges are never padded; float32 matmuls run in
@@ -99,9 +99,9 @@ class ComputeConfig:
     kernels and raises when no GPU is present; ``cpu`` runs their plain
     PyTorch versions.  There is no silent fallback from one to the other.
     ``dtype`` is the GNN's compute dtype (JAX ``compute.dtype``):
-    ``bfloat16`` runs the batch-norm SymGatedGCN's gathers, matmuls, gates
-    and kernels in bf16 with float32 BatchNorm and node sums; the zoo
-    ignores it, as in JAX."""
+    ``bfloat16`` runs the SymGatedGCN's gathers, matmuls, gates and kernels
+    in bf16 with float32 node sums (and float32 BatchNorm; LayerNorm
+    promotes to float32, as in JAX); the zoo ignores it, as in JAX."""
     device: str = "cuda"               # cuda | cuda:N | cpu
     dtype: str = "float32"             # float32 | bfloat16
 
@@ -136,20 +136,12 @@ DTYPES = ("float32", "bfloat16")
 
 def check_compute(cfg: "Config") -> None:
     """Raise for a compute dtype the port does not run: one outside
-    ``DTYPES``, or bfloat16 for the SymGatedGCN with layer or no
-    normalisation (its K1 and K2 run in float32 only)."""
+    ``DTYPES``.  Every normalisation runs both."""
     dt = cfg.compute.dtype
     if dt not in DTYPES:
         raise ValueError(f"compute.dtype={dt!r}: the port runs "
                          "float32|bfloat16; use compute.dtype=float32 or "
                          "compute.dtype=bfloat16")
-    if (dt == "bfloat16" and cfg.model.model in ("sym_gatedgcn",
-                                                 "sym_gated_gcn")
-            and cfg.model.normalization != "batch"):
-        raise ValueError(
-            f"compute.dtype=bfloat16 with model.normalization="
-            f"{cfg.model.normalization!r}: bfloat16 for layer/none "
-            "normalisation is not ported yet; use compute.dtype=float32")
 
 
 def compute_dtype(cfg: "Config"):

@@ -47,6 +47,22 @@ __device__ __forceinline__ float rnd(float x) {
         return x;
 }
 
+// One stored element as a float (exact), and a float stored as element type
+// S (bf16: rounded to nearest even; callers round at the contract's points
+// first, so the store is exact).
+__device__ __forceinline__ float elem_f32(float x) { return x; }
+__device__ __forceinline__ float elem_f32(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+
+template <class S>
+__device__ __forceinline__ S f32_elem(float x) {
+    if constexpr (std::is_same<S, __nv_bfloat16>::value)
+        return __float2bfloat16_rn(x);
+    else
+        return x;
+}
+
 // x = B1h[u] + B2h[v] + B3e, added in that order (in bf16: the endpoint sum
 // rounded, then the sum with B3e rounded)
 template <class S = float>

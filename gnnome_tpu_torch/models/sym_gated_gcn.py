@@ -56,14 +56,26 @@ order between the encoder and the logits; the logits come back in host
 edge order.
 
 Compute dtype (``dtype``; JAX ``compute.dtype``, sym_gated_gcn.py:21-22):
-float32, or bfloat16 for batch norm.  In bf16 the parameters stay float32
-(Adam, checkpoints and the converters see float32) and are cast to bf16
-where they are used, as the JAX package's ``.astype(dtype)`` does; the
-encoders run in float32 and their outputs are cast to bf16; the layers'
-matmuls, gathers and gates, K3/K6/K7/K8/K9 and the gated means run in bf16;
-BatchNorm computes in float32 and returns bf16 (``models/norm.py``); the
-logits are cast to float32 before they leave the model.  A layer takes its
-compute dtype from its node states.  Layer norm and none refuse bf16.
+float32 or bfloat16, for every normalisation.  In bf16 the parameters stay
+float32 (Adam, checkpoints and the converters see float32); where they are
+used they are rounded to bf16 and then cast to the activations' dtype, as
+the JAX package's ``.astype(dtype)`` and type promotion do; the encoders
+run in float32 and their outputs are cast to bf16; the logits are cast to
+float32 before they leave the model.  The model hands the compute dtype to
+each layer and to the predictor, because the activations' dtype is not it
+everywhere:
+
+* batch norm: the layers' matmuls, gathers and gates, K3/K6/K7/K8/K9 and
+  the gated means run in bf16; BatchNorm computes in float32 and returns
+  bf16 (``models/norm.py``), so ``h`` and ``e`` stay bf16 throughout;
+* none: ``h`` and ``e`` stay bf16 too: K1 in bf16, the gated means' K2
+  over bf16 payloads (float32 sums, divided in float32, cast to bf16);
+* layer norm: the first layer's projections and K1 run in bf16, but
+  LayerNorm computes its statistics in bf16 and multiplies by the float32
+  weight and bias, so its output, ``e_out``, ``sigma``, the K2 payloads
+  and the layer's ``h`` and ``e`` are float32 (the JAX package's type
+  promotion, norm.py:111-115); from layer 2 on the layers, K1, K2 and the
+  predictor compute in float32 with bf16-rounded weights and biases.
 """
 from __future__ import annotations
 
@@ -94,9 +106,16 @@ def _bd_cols(pairs):
     return torch.cat([left, right], 1)
 
 
-def _linear(m: nn.Linear, x):
-    """``m(x)`` in ``x``'s dtype: the float32 parameters cast at use."""
-    return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
+def _at(w, x, dtype=None):
+    """The float32 parameter ``w`` as ``x``'s operand: rounded to the
+    compute dtype ``dtype`` (default ``x``'s), then cast to ``x``'s dtype
+    (JAX ``w.astype(dtype)`` promoted against ``x``)."""
+    return w.to(dtype or x.dtype).to(x.dtype)
+
+
+def _linear(m: nn.Linear, x, dtype=None):
+    """``m(x)`` in ``x``'s dtype, the parameters as ``_at`` casts them."""
+    return F.linear(x, _at(m.weight, x, dtype), _at(m.bias, x, dtype))
 
 
 def _gated_means(s, d):
@@ -123,17 +142,20 @@ class SymGatedGCNLayer(nn.Module):
         else:
             self.bn_h = self.bn_e = None
 
-    def _projection(self, h):
+    def _projection(self, h, dtype=None):
         """``h @ [B1|A2|B2|A3|A1] + b``: column groups [B1|A2] (u
         endpoint), [B2|A3] (v endpoint), [A1]."""
         lins = (self.B_1, self.A_2, self.B_2, self.A_3, self.A_1)
-        return F.linear(h, torch.cat([m.weight for m in lins]).to(h.dtype),
-                        torch.cat([m.bias for m in lins]).to(h.dtype))
+        return F.linear(h, _at(torch.cat([m.weight for m in lins]), h, dtype),
+                        _at(torch.cat([m.bias for m in lins]), h, dtype))
 
     def forward(self, g: DeviceGraph, h, e, flip: bool, drop_rate: float = 0.0,
-                generator=None):
+                generator=None, dtype=None):
+        """One layer; ``dtype`` the compute dtype (default ``h``'s), which
+        the layer-norm model's float32 layers need (module docstring)."""
         if self.normalization != "batch":
-            return self._forward_unfused(g, h, e, flip, drop_rate, generator)
+            return self._forward_unfused(g, h, e, flip, drop_rate, generator,
+                                         dtype)
         if self.training:
             return self._forward_train(g, h, e, flip, drop_rate, generator)
         d = h.shape[1]
@@ -213,11 +235,11 @@ class SymGatedGCNLayer(nn.Module):
         return h_new, e_out
 
     def _forward_unfused(self, g: DeviceGraph, h, e, flip: bool,
-                         drop_rate: float, generator):
+                         drop_rate: float, generator, dtype=None):
         d = h.shape[1]
-        proj = self._projection(h)
+        proj = self._projection(h, dtype)
         g3 = gate_gather(g, flip, proj[:, :2 * d], proj[:, 2 * d:4 * d],
-                         self.B_3(e))
+                         _linear(self.B_3, e, dtype))
         e_out = torch.relu(apply_norm(self.bn_e, g3[:, :d])) + e
         h_fwd, h_bwd = gated_mean_pair(g, flip, torch.sigmoid(e_out),
                                        g3[:, d:2 * d], g3[:, 2 * d:],
@@ -246,11 +268,16 @@ class ScorePredictor(nn.Module):
         self.W2 = nn.Linear(hidden, 32)
         self.W3 = nn.Linear(32, 1)
 
-    def forward(self, g: DeviceGraph, h, e, flip: bool):
+    def forward(self, g: DeviceGraph, h, e, flip: bool, dtype=None):
+        """Logits [E, 1] in ``h``'s dtype; ``dtype`` the compute dtype
+        (default ``h``'s), whose rounding the unpacked form's weights take
+        (JAX score_edges, sym_gated_gcn.py:547-577)."""
         if not self.fused:
             h_u, h_v = gather_uv(g, flip, h)
-            z = torch.relu(self.W1(torch.cat([h_u, h_v, e], dim=1)))
-            return self.W3(torch.relu(self.W2(z)))
+            z = torch.relu(_linear(self.W1, torch.cat([h_u, h_v, e], dim=1),
+                                   dtype))
+            return _linear(self.W3, torch.relu(_linear(self.W2, z, dtype)),
+                           dtype)
         d, dt = h.shape[1], h.dtype
         w1 = self.W1.weight.to(dt)                        # [H, 3d]
         puv = torch.cat([F.linear(h, w1[:, :d]),
@@ -286,7 +313,7 @@ class SymGatedGCN(nn.Module):
     built in eval mode; ``.train()`` selects the training forward, whose
     dropout (rate ``dropout``) needs a ``generator``.  ``normalization`` is
     ``batch``, ``layer`` or ``none``; ``dtype`` (every forward) the compute
-    dtype, float32 or (batch norm) bfloat16."""
+    dtype, float32 or bfloat16."""
 
     kind = "sym_gatedgcn"
 
@@ -337,10 +364,6 @@ class SymGatedGCN(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype={dtype}: expected torch.float32 or "
                              "torch.bfloat16")
-        if dtype == torch.bfloat16 and self.normalization != "batch":
-            raise ValueError(
-                f"bfloat16 for normalization={self.normalization!r} is not "
-                "ported yet; use compute.dtype=float32")
 
     def forward(self, g: DeviceGraph, x, e, flip: bool = False,
                 generator=None, slot_io: bool = False,
@@ -355,8 +378,8 @@ class SymGatedGCN(nn.Module):
         if not slot_io:
             e = g.edges_to_slots(e)
         for conv in self.gnn.convs:
-            h, e = conv(g, h, e, flip, drop, generator)
-        logits = self.predictor(g, h, e, flip).float()
+            h, e = conv(g, h, e, flip, drop, generator, dtype)
+        logits = self.predictor(g, h, e, flip, dtype).float()
         return logits if slot_io else g.slots_to_edges(logits)
 
     def forward_pair(self, g: DeviceGraph, x, x_rev, e, generator=None,

@@ -10,17 +10,19 @@ and backward (``ops/message.py`` wraps them in
 ``torch.autograd.Function``s).  ``k2_side_sum``, one side of K2's walk as
 its own entry, carries the model zoo's reductions into nodes.
 
-K3, K6, K7, K8 and K9 run in float32 or bfloat16 (the JAX package's
-``compute.dtype=bfloat16``): each kernel has a bf16 instantiation, chosen
-by the ``bf16`` flag its C entry takes from the tensors' dtype, that reads
-and writes bf16 rows, computes in float32 and rounds where the JAX bf16
-kernel rounds; its plain version does the same operations on bf16 tensors.
-K1 and K2 take float32 only.
+K1, K2, K3, K6, K7, K8 and K9 run in float32 or bfloat16 (the JAX
+package's ``compute.dtype=bfloat16``): each kernel has a bf16
+instantiation, chosen by the ``bf16`` flag its C entry takes from the
+tensors' dtype, that reads and writes bf16 rows, computes in float32 and
+rounds where the JAX bf16 kernel rounds; its plain version does the same
+operations on bf16 tensors.  K2 and K9 sum bf16 payloads into float32
+node sums.  The one-sided K2 walk (the zoo) takes float32 only.
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper counts
-its launches in ``<wrapper>.launches`` (see ``launch_counts``), so a run can
-show that its main path went through the kernels.
+its launches in ``<wrapper>.launches``, and those of its bf16 instantiation
+also in ``<wrapper>.launches_bf16`` (see ``launch_counts``), so a run can
+show that its main path went through the kernels, and in which dtype.
 
 Build: at first CUDA use, ``nvcc -gencode arch=compute_90a,code=sm_90a``
 compiles every source under ``csrc/`` (one process per source, all started
@@ -122,12 +124,12 @@ def _library():
             lib.gn_k1_gather_gate.argtypes = [
                 L, I, P, P,                  # n_edges, d, u_idx, v_idx
                 P, L, P, L,                  # proj_u, ldu, proj_v, ldv
-                P, P, P]                     # b3e, out, stream
+                P, P, I, P]                  # b3e, out, bf16, stream
             lib.gn_k2_aggregate.restype = I
             lib.gn_k2_aggregate.argtypes = [
                 I, I, P, P, P, P,            # n_nodes, width, v_ptr, v_perm, u_ptr, u_perm
                 P, L, P, L,                  # pay_u, ldu, pay_v, ldv
-                P, P, P]                     # sum_u, sum_v, stream
+                P, P, I, P]                  # sum_u, sum_v, bf16, stream
             lib.gn_k2_side_sum.restype = I
             lib.gn_k2_side_sum.argtypes = [
                 I, I, P, P,                  # n_nodes, width, ptr, perm
@@ -184,9 +186,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device,
 
 
 def _edge_dtype(name: str, t: torch.Tensor):
-    """The element type of a K3, K6, K7, K8 or K9 call: float32, or
-    bfloat16 (the JAX package's ``compute.dtype=bfloat16``), which launches
-    the kernel's bf16 instantiation."""
+    """The element type of a kernel call: float32, or bfloat16 (the JAX
+    package's ``compute.dtype=bfloat16``), which launches the kernel's bf16
+    instantiation."""
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
                         "bfloat16")
@@ -205,12 +207,27 @@ def wide_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _float32_only(name: str, t: torch.Tensor) -> None:
-    """K1 and K2 (the layer-norm and norm-free model, and the zoo's sums)
-    run in float32 only."""
+    """The one-sided K2 walk (the zoo's sums) runs in float32 only: the zoo
+    ignores the compute dtype, as in the JAX package."""
     if t.dtype == torch.bfloat16:
-        raise TypeError(f"{name}: bfloat16 is not ported for K1 and K2 (the "
-                        "layer-norm and norm-free model); use "
-                        "compute.dtype=float32")
+        raise TypeError(f"{name}: float32 only (the model zoo runs in "
+                        "float32 whatever compute.dtype says)")
+
+
+def _same_dtype(name: str, **tensors) -> None:
+    """Every tensor of one kernel call in one dtype: a mixed call is a
+    fault of the caller, never promoted quietly."""
+    dts = {k: t.dtype for k, t in tensors.items()}
+    if len(set(dts.values())) > 1:
+        raise TypeError(f"{name}: mixed dtypes {dts}; every operand must be "
+                        "of one dtype")
+
+
+def _count(fn, dtype) -> None:
+    """One launch of ``fn``'s kernel, in ``dtype``'s instantiation."""
+    fn.launches += 1
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
 
 
 def _check_csr(v_csr, u_csr, n: int, E: int, device) -> None:
@@ -237,7 +254,8 @@ def _raise_on(rc: int, what: str) -> None:
 def k1_gather_gate_plain(u_idx, v_idx, proj_u, proj_v, b3e):
     """Plain PyTorch K1: ``[(B1h[u] + B2h[v]) + b3e | A2h[u] | A3h[v]]``
     ([E, 3d]) with ``proj_u`` = [B1h | A2h], ``proj_v`` = [B2h | A3h]
-    ([N, 2d]) and ``b3e`` [E, d] in slot order."""
+    ([N, 2d]) and ``b3e`` [E, d] in slot order.  In bfloat16 each add
+    rounds to bf16, as the kernel's do."""
     d = b3e.shape[1]
     gu = proj_u.index_select(0, u_idx)
     gv = proj_v.index_select(0, v_idx)
@@ -248,9 +266,9 @@ def k1_gather_gate_plain(u_idx, v_idx, proj_u, proj_v, b3e):
 def k1_gather_gate(u_idx, v_idx, proj_u, proj_v, b3e):
     """K1, the unfused endpoint gathers and gate (csrc/k1_gather_gate.cu).
     ``proj_u``/``proj_v`` may be column slices (row-strided) of the
-    projection.  Returns what ``k1_gather_gate_plain`` returns.  float32
-    only."""
-    _float32_only("K1", proj_u)
+    projection.  float32 or bfloat16 (every operand and the output of one
+    dtype).  Returns what ``k1_gather_gate_plain`` returns."""
+    _same_dtype("K1", proj_u=proj_u, proj_v=proj_v, b3e=b3e)
     if proj_u.device.type == "cpu":
         return k1_gather_gate_plain(u_idx, v_idx, proj_u, proj_v, b3e)
     if proj_u.device.type != "cuda":
@@ -258,29 +276,33 @@ def k1_gather_gate(u_idx, v_idx, proj_u, proj_v, b3e):
     dev = proj_u.device
     E, d = b3e.shape
     n = proj_u.shape[0]
-    _check("proj_u", proj_u, torch.float32, (n, 2 * d), dev,
-           rows_contiguous=False)
-    _check("proj_v", proj_v, torch.float32, (n, 2 * d), dev,
-           rows_contiguous=False)
-    _check("b3e", b3e, torch.float32, (E, d), dev)
+    dt = _edge_dtype("K1", b3e)
+    _check("proj_u", proj_u, dt, (n, 2 * d), dev, rows_contiguous=False)
+    _check("proj_v", proj_v, dt, (n, 2 * d), dev, rows_contiguous=False)
+    _check("b3e", b3e, dt, (E, d), dev)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
-    out = torch.empty((E, 3 * d), dtype=torch.float32, device=dev)
+    out = torch.empty((E, 3 * d), dtype=dt, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gn_k1_gather_gate(
             E, d, _ptr(u_idx), _ptr(v_idx), _ptr(proj_u), proj_u.stride(0),
             _ptr(proj_v), proj_v.stride(0), _ptr(b3e), _ptr(out),
+            int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K1")
-    k1_gather_gate.launches += 1
+    _count(k1_gather_gate, dt)
     return out
 
 
 # ------------------------------------------------------------------------- K2
 def k2_aggregate_plain(u_idx, v_idx, pay_u, pay_v, n_nodes: int):
     """Plain PyTorch K2: ``(sum_u [N, Dp], sum_v [N, Dp])``, ``pay_u``
-    [E, Dp] summed into the u endpoint and ``pay_v`` into the v endpoint."""
+    [E, Dp] summed into the u endpoint and ``pay_v`` into the v endpoint,
+    in ``wide``'s dtype (float32 sums of bfloat16 payloads).  On the CPU
+    ``index_add_`` adds each node's terms in slot order, as the kernel does,
+    so the two agree bit for bit."""
+    pay_u, pay_v = wide(pay_u), wide(pay_v)
     Dp = pay_u.shape[1]
     sum_u = torch.zeros((n_nodes, Dp), dtype=pay_u.dtype, device=pay_u.device)
     sum_u.index_add_(0, u_idx, pay_u)
@@ -292,9 +314,9 @@ def k2_aggregate_plain(u_idx, v_idx, pay_u, pay_v, n_nodes: int):
 def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
     """K2, the unfused two-sided aggregation (csrc/k2_aggregate.cu).
     ``v_csr`` / ``u_csr`` as for K3; the payloads may be column slices
-    (row-strided).  Returns what ``k2_aggregate_plain`` returns.  float32
-    only."""
-    _float32_only("K2", pay_u)
+    (row-strided), float32 or bfloat16 (both of one dtype); the sums are
+    float32.  Returns what ``k2_aggregate_plain`` returns."""
+    _same_dtype("K2", pay_u=pay_u, pay_v=pay_v)
     n = v_csr[0].shape[0] - 1
     if pay_u.device.type == "cpu":
         return k2_aggregate_plain(u_idx, v_idx, pay_u, pay_v, n)
@@ -302,8 +324,9 @@ def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
         raise ValueError(f"K2: unsupported device {pay_u.device}")
     dev = pay_u.device
     E, Dp = pay_u.shape
+    dt = _edge_dtype("K2", pay_u)
     for name, t in (("pay_u", pay_u), ("pay_v", pay_v)):
-        _check(name, t, torch.float32, (E, Dp), dev, rows_contiguous=False)
+        _check(name, t, dt, (E, Dp), dev, rows_contiguous=False)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
     _check_csr(v_csr, u_csr, n, E, dev)
@@ -315,9 +338,10 @@ def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
             n, Dp, _ptr(v_csr[0]), _ptr(v_csr[1]), _ptr(u_csr[0]),
             _ptr(u_csr[1]), _ptr(pay_u), pay_u.stride(0), _ptr(pay_v),
             pay_v.stride(0), _ptr(sum_u), _ptr(sum_v),
+            int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K2")
-    k2_aggregate.launches += 1
+    _count(k2_aggregate, dt)
     return sum_u, sum_v
 
 
@@ -359,7 +383,7 @@ def k2_side_sum(idx, csr, pay):
                                 pay.stride(0), _ptr(out),
                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K2 side sum")
-    k2_side_sum.launches += 1
+    _count(k2_side_sum, torch.float32)
     return out
 
 
@@ -432,7 +456,7 @@ def k3_edge_stage(u_idx, v_idx, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn):
             _ptr(e_out), _ptr(sum_v), _ptr(sum_u), int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K3")
-    k3_edge_stage.launches += 1
+    _count(k3_edge_stage, dt)
     return e_out, sum_v, sum_u
 
 
@@ -470,7 +494,7 @@ def k6_score_gate(u_idx, v_idx, puv, be):
                                   _ptr(z), int(dt == torch.bfloat16),
                                   torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K6")
-    k6_score_gate.launches += 1
+    _count(k6_score_gate, dt)
     return z
 
 
@@ -534,7 +558,7 @@ def k7_gate_stats(u_idx, v_idx, bu, bv, b3e):
             _ptr(bv), bv.stride(0), _ptr(b3e), _ptr(partials),
             _ptr(tickets), _ptr(out), int(dt == torch.bfloat16), stream)
     _raise_on(rc, "K7")
-    k7_gate_stats.launches += 1
+    _count(k7_gate_stats, dt)
     return out
 
 
@@ -620,7 +644,7 @@ def k8_train_layer_bwd(u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj_u,
             int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K8")
-    k8_train_layer_bwd.launches += 1
+    _count(k8_train_layer_bwd, dt)
     return x, d_eo, node_u, node_v, stats
 
 
@@ -666,7 +690,7 @@ def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
             int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "K9")
-    k9_aggregate.launches += 1
+    _count(k9_aggregate, dt)
     return out
 
 
@@ -677,13 +701,23 @@ KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
            "k8_train_layer_bwd": k8_train_layer_bwd,
            "k9_aggregate": k9_aggregate}
 for _fn in KERNELS.values():
-    _fn.launches = 0
+    _fn.launches = _fn.launches_bf16 = 0
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts(dtype: torch.dtype | None = None) -> dict:
+    """Each kernel's launches since the last reset: all of them, or
+    (``dtype``) those of its float32 or its bfloat16 instantiation."""
+    if dtype is None:
+        return {name: fn.launches for name, fn in KERNELS.items()}
+    if dtype == torch.bfloat16:
+        return {name: fn.launches_bf16 for name, fn in KERNELS.items()}
+    if dtype == torch.float32:
+        return {name: fn.launches - fn.launches_bf16
+                for name, fn in KERNELS.items()}
+    raise ValueError(f"dtype={dtype}: expected None, torch.float32 or "
+                     "torch.bfloat16")
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0

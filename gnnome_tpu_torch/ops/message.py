@@ -21,10 +21,11 @@ inside a kernel, so a training step is bitwise reproducible on the card; no
 gather with repeated indices is left to autograd (its backward would be an
 atomic ``index_add_``).
 
-The batch-norm ops run in the dtype of their node and edge states, float32
-or bfloat16 (``train_edge_stage``, ``score_gate``); the casts between the
-two sit where the JAX package's bf16 mode casts (message.py:413-448,
-468-635, 713-734).
+The ops run in the dtype of their node and edge states, float32 or
+bfloat16; the casts between the two sit where the JAX package's bf16 mode
+casts (message.py:413-448, 468-635, 713-734 for the batch-norm ops;
+175-179, 219-222, 668-676, 772-791 for the unfused ones).  K2 sums bf16
+payloads into float32 node sums, which each op rounds where JAX does.
 """
 from __future__ import annotations
 
@@ -247,11 +248,13 @@ class _GateGather(torch.autograd.Function):
         u_idx, v_idx, v_csr, u_csr = ctx.g.roles(ctx.flip)
         d_g3 = d_g3.contiguous()
         d = d_g3.shape[1] // 3
-        # the u-side payload [d_gate | d_a2h] is a column slice of d_g3
+        # the u-side payload [d_gate | d_a2h] is a column slice of d_g3;
+        # K2's float32 sums rounded to d_g3's dtype (message.py:219-222)
         d_pu, d_pv = k2_aggregate(
             u_idx, v_idx, v_csr, u_csr, d_g3[:, :2 * d],
             torch.cat([d_g3[:, :d], d_g3[:, 2 * d:]], dim=1))
-        return None, None, d_pu, d_pv, d_g3[:, :d]
+        return (None, None, d_pu.to(d_g3.dtype), d_pv.to(d_g3.dtype),
+                d_g3[:, :d])
 
 
 def gate_gather(g: DeviceGraph, flip: bool, proj_u, proj_v, b3e):
@@ -259,8 +262,10 @@ def gate_gather(g: DeviceGraph, flip: bool, proj_u, proj_v, b3e):
     of JAX ``fused_gate_gather`` (message.py:78-97,185-225).  Returns
     ``[gate | A2h[u] | A3h[v]]`` ([E, 3d]) with gate = B1h[u] + B2h[v] +
     b3e; ``proj_u`` = [B1h | A2h], ``proj_v`` = [B2h | A3h] ([N, 2d], may be
-    column slices).  The backward sums ``[d_gate | d_a2h]`` into u and
-    ``[d_gate | d_a3h]`` into v with K2; ``d_b3e = d_gate``."""
+    column slices).  float32 or bfloat16, every operand of one dtype.  The
+    backward sums ``[d_gate | d_a2h]`` into u and ``[d_gate | d_a3h]`` into
+    v with K2 (float32 sums, rounded to the operands' dtype); ``d_b3e =
+    d_gate``."""
     return _GateGather.apply(g, flip, proj_u, proj_v, b3e)
 
 
@@ -268,20 +273,23 @@ class _Aggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g, flip, pay_u, pay_v):
         u_idx, v_idx, v_csr, u_csr = g.roles(flip)
-        ctx.g, ctx.flip = g, flip
+        ctx.g, ctx.flip, ctx.dtype = g, flip, pay_u.dtype
         return k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v)
 
     @staticmethod
     def backward(ctx, d_sum_u, d_sum_v):
         u_idx, v_idx, _, _ = ctx.g.roles(ctx.flip)
-        return (None, None, d_sum_u.index_select(0, u_idx),
-                d_sum_v.index_select(0, v_idx))
+        # cast to the payloads' dtype before the row gathers
+        # (message.py:668-676)
+        return (None, None, d_sum_u.to(ctx.dtype).index_select(0, u_idx),
+                d_sum_v.to(ctx.dtype).index_select(0, v_idx))
 
 
 def aggregate(g: DeviceGraph, flip: bool, pay_u, pay_v):
     """``(sum_u, sum_v)`` ([N, Dp]): ``pay_u`` [E, Dp] summed into u and
-    ``pay_v`` into v (K2; JAX ``_aggregate_pallas``, message.py:640-679).
-    The backward is the two row gathers ``d_sum_u[u]``, ``d_sum_v[v]``."""
+    ``pay_v`` into v (K2; JAX ``_aggregate_pallas``, message.py:640-679),
+    float32 sums of float32 or bfloat16 payloads.  The backward is the two
+    row gathers ``d_sum_u[u]``, ``d_sum_v[v]`` in the payloads' dtype."""
     return _Aggregate.apply(g, flip, pay_u, pay_v)
 
 
@@ -291,14 +299,18 @@ def gated_mean_pair(g: DeviceGraph, flip: bool, sigma, a2h_u, a3h_v,
     message.py:748-778): ``h_fwd[i]`` = sum over edges with v = i of
     ``sigma * A2h[u]`` over (sum of ``sigma`` + eps), ``h_bwd`` likewise by
     u with ``A3h[v]``.  One K2 over the payloads ``[sigma * a3h_v | sigma]``
-    (by u) and ``[sigma * a2h_u | sigma]`` (by v)."""
+    (by u) and ``[sigma * a2h_u | sigma]`` (by v), formed in the dtype of
+    their operands (bfloat16 in the norm-free bf16 model; float32 where a
+    float32 ``sigma`` promotes them, as in the layer-norm bf16 model); the
+    division in K2's float32, the means returned in ``a2h_u``'s dtype
+    (message.py:772-791)."""
     d = a2h_u.shape[1]
     pay_v = torch.cat([sigma * a2h_u, sigma], dim=1)
     pay_u = torch.cat([sigma * a3h_v, sigma], dim=1)
     sum_u, sum_v = aggregate(g, flip, pay_u, pay_v)
     h_fwd = sum_v[:, :d] / (sum_v[:, d:] + eps)
     h_bwd = sum_u[:, :d] / (sum_u[:, d:] + eps)
-    return h_fwd, h_bwd
+    return h_fwd.to(a2h_u.dtype), h_bwd.to(a2h_u.dtype)
 
 
 class _GatherUV(torch.autograd.Function):
@@ -312,7 +324,9 @@ class _GatherUV(torch.autograd.Function):
     def backward(ctx, d_u, d_v):
         u_idx, v_idx, v_csr, u_csr = ctx.g.roles(ctx.flip)
         sum_u, sum_v = k2_aggregate(u_idx, v_idx, v_csr, u_csr, d_u, d_v)
-        return None, None, sum_u + sum_v
+        # added in float32, rounded once to the cotangents' dtype
+        # (message.py:175-179)
+        return None, None, (sum_u + sum_v).to(d_u.dtype)
 
 
 def gather_uv(g: DeviceGraph, flip: bool, h):

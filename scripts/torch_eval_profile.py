@@ -7,7 +7,7 @@
 Scores the E. coli-scale golden graph (tests/fixtures/golden_ecoli_v1.npz)
 with weights/weights.npz (batch norm, the default) or seeded init weights
 (``init_weights(7)``: layer norm, none) at compute dtype ``--dtype``
-(``bfloat16``: batch norm only) on the card under ``torch.profiler``
+(every normalisation) on the card under ``torch.profiler``
 and prints one JSON line: the forward's wall time (host clock around
 synchronised runs),
 the device busy time per kernel name summed over the profiled forwards, the

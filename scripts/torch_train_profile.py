@@ -10,7 +10,7 @@ full-width SymGatedGCN (d=64, 8 layers, dropout 0.2), started from
 weights/weights.npz (batch norm, the default) or seeded init weights
 (``init_weights(7)``: layer norm, none), on the E. coli-scale golden graph
 (tests/fixtures/golden_ecoli_v1.npz) as one unit (no masking, no
-clustering), at compute dtype ``--dtype`` (``bfloat16``: batch norm only),
+clustering), at compute dtype ``--dtype`` (every normalisation),
 under ``torch.profiler``, and prints one JSON line: the step's
 wall time (host clock around synchronised steps, unprofiled), the device
 busy time per kernel name summed over the profiled steps, the device

@@ -324,8 +324,9 @@ def test_k9_bf16_plain_vs_jax_xla(kgraph, flip):
 
 def test_bf16_wrappers_keep_the_dtype_contract(kgraph):
     """On the CPU the wrappers take the plain versions in bf16 and return
-    K3 and K6 outputs in bf16, K7 float64, K8 bf16 with float64 sums, K9
-    float32; no launch is counted; K1 and K2 refuse bf16."""
+    K1, K3 and K6 outputs in bf16, K7 float64, K8 bf16 with float64 sums,
+    K2 and K9 float32 sums; no launch is counted; the zoo's one-sided K2
+    walk refuses bf16."""
     g, dg = kgraph
     a = {k: _bf(v) for k, v in _kernel_inputs(g, 6).items()}
     u, v, v_csr, u_csr = dg.roles(False)
@@ -341,12 +342,12 @@ def test_bf16_wrappers_keep_the_dtype_contract(kgraph):
     assert K.k7_gate_stats(u, v, a["proj_u"][:, :D], a["proj_v"][:, :D],
                            a["b3e"]).dtype == torch.float64
     assert K.k9_aggregate(u, v, v_csr, u_csr, a["pay"]).dtype == torch.float32
+    assert K.k1_gather_gate(u, v, a["proj_u"], a["proj_v"],
+                            a["b3e"]).dtype == BF
+    assert [t.dtype for t in K.k2_aggregate(u, v, v_csr, u_csr, a["pay"],
+                                            a["pay"])] == [torch.float32] * 2
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
-    with pytest.raises(TypeError, match="bfloat16 is not ported for K1"):
-        K.k1_gather_gate(u, v, a["proj_u"], a["proj_v"], a["b3e"])
-    with pytest.raises(TypeError, match="bfloat16 is not ported for K1"):
-        K.k2_aggregate(u, v, v_csr, u_csr, a["pay"], a["pay"])
-    with pytest.raises(TypeError, match="bfloat16 is not ported for K1"):
+    with pytest.raises(TypeError, match="K2 side sum: float32 only"):
         K.k2_side_sum(dg.dst, v_csr, a["pay"])
 
 
@@ -701,33 +702,40 @@ def test_dtype_from_a_jax_written_config(tmp_path, precision):
 @pytest.mark.parametrize("norm", ["layer", "none"])
 @pytest.mark.parametrize("route", ["set", "file"])
 def test_bf16_refused_for_layer_and_none(tmp_path, norm, route):
-    """bfloat16 with layer or no normalisation is refused when the config
-    is read, with the reason and the working setting; no fallback."""
-    with pytest.raises(ValueError) as exc:
-        if route == "set":
-            Config().apply_overrides([f"model.normalization={norm}",
-                                      "compute.dtype=bfloat16"])
-        else:
-            jcfg = JaxConfig()
-            jcfg.model.normalization = norm
-            jcfg.compute.dtype = "bfloat16"
-            path = str(tmp_path / "c.json")
-            jcfg.save(path)
-            Config.load(path)
-    msg = str(exc.value)
-    assert "bfloat16 for layer/none normalisation is not ported yet" in msg
-    assert "compute.dtype=float32" in msg
+    """bfloat16 with layer or no normalisation is no longer refused: the
+    ``--set`` route and a JAX-written config both load it, and the compute
+    dtype the model gets is bfloat16."""
+    if route == "set":
+        cfg = Config().apply_overrides([f"model.normalization={norm}",
+                                        "compute.dtype=bfloat16"])
+    else:
+        jcfg = JaxConfig()
+        jcfg.model.normalization = norm
+        jcfg.compute.dtype = "bfloat16"
+        path = str(tmp_path / "c.json")
+        jcfg.save(path)
+        cfg = Config.load(path)
+    assert cfg.model.normalization == norm
+    assert cfg.compute.dtype == "bfloat16"
+    assert compute_dtype(cfg) == BF
 
 
 @pytest.mark.parametrize("norm", ["layer", "none"])
 def test_model_refuses_bf16_for_layer_and_none(small, norm):
+    """The layer-norm and norm-free models run at dtype=bfloat16 (no
+    refusal): finite float32 logits that differ from the float32 run's by
+    bf16 rounding."""
     g, _, _, _ = small
     model = SymGatedGCN.from_config(ModelConfig(**{**SMALL,
                                                    "normalization": norm}))
-    x, e = node_features(g), edge_features(g)
-    with pytest.raises(ValueError, match="not ported yet"):
-        model(DeviceGraph.from_graph(g), torch.from_numpy(x),
-              torch.from_numpy(e), dtype=BF)
+    model.init_weights(3)
+    args = (DeviceGraph.from_graph(g), torch.from_numpy(node_features(g)),
+            torch.from_numpy(edge_features(g)))
+    with torch.inference_mode():
+        lo16, lo32 = model(*args, dtype=BF), model(*args)
+    assert lo16.dtype == torch.float32 and lo16.shape == lo32.shape
+    assert not torch.equal(lo16, lo32)
+    assert_logits_close(lo16.numpy(), lo32.numpy(), f"{norm} bf16 vs float32")
 
 
 def test_zoo_ignores_the_compute_dtype(small):

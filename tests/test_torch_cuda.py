@@ -29,8 +29,8 @@ relative to the sum of magnitudes (the order differs); K8's per-edge x is
 exact, d_eo ``atol=1e-5`` (sigmoid); K2's sums as K3's; K9's exact against
 the plain version on CPU copies, where ``index_add_`` adds each node's terms
 in slot order as the kernel does, and so are the one-sided walk's; K1
-repeats the plain version's adds: exact.  The bf16 instantiations of K3,
-K6, K7, K8 and K9 at the end of the file state their own.
+repeats the plain version's adds: exact.  The bf16 instantiations of K1,
+K2, K3, K6, K7, K8 and K9 at the end of the file state their own.
 """
 import pytest
 import torch
@@ -594,6 +594,106 @@ def test_two_card_bf16_train_steps_bitwise_equal(cuda):
                                  "k3_edge_stage": 16, "k6_score_gate": 2,
                                  "k7_gate_stats": 16,
                                  "k8_train_layer_bwd": 16, "k9_aggregate": 2}
+    (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
+    assert lo0.dtype == torch.float32 and torch.isfinite(lo0).all()
+    assert all(t.dtype == torch.float32 for t in g0 + p0)
+    assert torch.equal(l0, l1) and torch.equal(lo0, lo1)
+    assert all(torch.equal(a, b) for a, b in zip(g0 + p0, g1 + p1))
+
+
+# The bf16 instantiations of K1 and K2 (the layer-norm and norm-free models
+# at compute.dtype=bfloat16): K1's gate repeats the plain version's two
+# rounded adds and its copies are copies: exact.  K2 sums bf16 payloads in
+# float32 in slot order: bit-equal to the plain version on CPU copies.
+# Row layouts: column slices of a [N, 5d] projection (16-byte words at d =
+# 16, 64 and 192, 8-byte words at d = 20, one element at d = 6) and odd
+# row strides (one element per thread).
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("d", [6, 16, 20, 64, 192])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k1_bf16_kernel_vs_plain(graph, cuda, flip, d, pad):
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    proj = _bf16(torch.randn(graph.n_nodes, 5 * d + pad, device=cuda,
+                             generator=gen))
+    proj_u, proj_v = proj[:, :2 * d], proj[:, 2 * d:4 * d]
+    b3e = _bf16(torch.randn(graph.n_edges, d, device=cuda, generator=gen))
+    u, v, _, _ = graph.roles(flip)
+    K.reset_launch_counts()
+    got = K.k1_gather_gate(u, v, proj_u, proj_v, b3e)
+    assert K.launch_counts(torch.bfloat16)["k1_gather_gate"] == 1
+    assert K.launch_counts(torch.float32)["k1_gather_gate"] == 0
+    ref = K.k1_gather_gate_plain(u, v, proj_u, proj_v, b3e)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (graph.n_edges, 3 * d)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert torch.equal(got, K.k1_gather_gate(u, v, proj_u, proj_v, b3e))
+
+
+@pytest.mark.parametrize("which", ["assembly", "hub", "tiny"])
+@pytest.mark.parametrize("width", [3, 16, 64, 128, 256])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k2_bf16_kernel_vs_cpu_plain(graphs, cuda, flip, width, which):
+    """bf16 payloads (u side a column slice) into float32 sums."""
+    graph = graphs[which]
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    pay_u = _bf16(torch.randn(graph.n_edges, width + 8, device=cuda,
+                              generator=gen))[:, :width]
+    pay_v = _bf16(torch.randn(graph.n_edges, width, device=cuda,
+                              generator=gen))
+    u, v, v_csr, u_csr = graph.roles(flip)
+    K.reset_launch_counts()
+    got = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+    assert K.launch_counts(torch.bfloat16)["k2_aggregate"] == 1
+    torch.cuda.synchronize()
+    ref = K.k2_aggregate_plain(u.cpu(), v.cpu(), pay_u.cpu(), pay_v.cpu(),
+                               graph.n_nodes)
+    for x, y in zip(got, ref):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+    again = K.k2_aggregate(u, v, v_csr, u_csr, pay_u, pay_v)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.parametrize("norm,bf16_launches", [
+    ("none", {"k1_gather_gate": 32, "k2_aggregate": 68}),
+    ("layer", {"k1_gather_gate": 4, "k2_aggregate": 4})])
+def test_two_card_unfused_bf16_train_steps_bitwise_equal(cuda, norm,
+                                                         bf16_launches):
+    """Two layer-norm or norm-free train steps at compute.dtype=bfloat16
+    from one state: bitwise equal, 32 K1 and 68 K2 over the two 8-layer
+    steps, of them in bf16 every one (none) or those of the first layer and
+    K1's adjoint there (layer norm, float32 from its first norms on)."""
+    import numpy as np
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.models import SymGatedGCN
+    from gnnome_tpu_torch.train.step import (host_units, make_example,
+                                             make_optimizer, train_step)
+
+    g, _, _, _ = synthetic_assembly_graph(n_reads=300, genome_len=25000,
+                                          read_len=400, seed=13)
+    cfg = Config()
+    cfg.model.normalization = norm
+    cfg.compute.dtype = "bfloat16"
+    cfg.train.masking = False
+    cfg.train.num_nodes_per_cluster = 10_000
+    (unit,) = host_units(g, cfg, np.random.default_rng(0))
+    ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
+                      unit.src, unit.dst, unit.n_nodes, cuda)
+    K.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        model = SymGatedGCN.from_config(cfg.model).init_weights(3).to(cuda)
+        opt = make_optimizer(model, 1e-3)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        loss, logits = train_step(model, opt, ex, 2.0, cfg, gen)
+        outs.append((loss, logits, [p.grad.clone() for p in
+                                    model.parameters()],
+                     [p.detach().clone() for p in model.parameters()]))
+    zero = {k: 0 for k in K.KERNELS}
+    assert K.launch_counts() == {**zero, "k1_gather_gate": 32,
+                                 "k2_aggregate": 68}
+    assert K.launch_counts(torch.bfloat16) == {**zero, **bf16_launches}
     (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
     assert lo0.dtype == torch.float32 and torch.isfinite(lo0).all()
     assert all(t.dtype == torch.float32 for t in g0 + p0)
