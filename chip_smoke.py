@@ -44,11 +44,23 @@ seconds since the script started):
    an odd width on column slices, K6 on column slices of wider arrays
    (row-strided), K9 on column slices at H = 256 and 20 (float4 rows and
    one float per lane); each against its plain version and bitwise
-   reproducible.
+   reproducible.  Every wrapper at E = 0 (a graph of 5 nodes and no edges,
+   float32 and bf16): its plain version's outputs, no launch.
 5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
    exact substring of the genome.
+5b. ``gfa_route``: the front of the main path with the port alone.  The
+   phase-5 genome's reads written as a hifiasm-dialect and a raven-dialect
+   GFA; ``cli build-graph`` on each (host), then ``cli infer`` on the card
+   (exactly 8 K3 + 1 K6, an exact contig); ``cli run`` with a stub
+   ``hifiasm`` that copies the prepared GFA (8 K3 + 1 K6, the FASTA of
+   build-graph + infer byte for byte); ``cli build-graph --training`` and
+   one ``cli train --overfit`` epoch on the card (8/8/8/1/1
+   K7/K3/K8/K6/K9 per unit); a host-timing build at the golden graph's
+   node count (4,800 reads, 9,600 nodes, 600 kb at ~7x) in a process of
+   its own: the seconds of build-graph's stages (parse, similarities,
+   save) and its peak RSS.
 6. ``train_step`` and ``train_step_layer``: the full-width model (d=64, 8
    layers), started from the shipped weights (batch norm) or seeded init
    weights (layer norm).  On the golden subgraph, one symmetry-loss step on
@@ -134,7 +146,11 @@ seconds since the script started):
    ``random_rc_bench_graph(1,048,576, 8.0)``'s eval at P = 2 and 4; per
    rank 8 K3 + 1 K6 per forward and 16/16/16/2/2 K7/K3/K8/K6/K9 per step;
    the route, K, R, extended rows, edges, bytes and times per rank, the
-   time of an idle collective.  Then ``cli infer`` and ``cli train`` with
+   time of an idle collective.  At P = 4 also a graph of 3 RC pairs (one
+   rank's block empty): eval logits within 1e-4 + 1e-4 |x| of the
+   single-device card forward, one step as above, and per rank 8 K3 + 1
+   K6 per forward and 16/16/16/2/2 per step where its block holds edges,
+   no launch where it holds none.  Then ``cli infer`` and ``cli train`` with
    ``--set compute.mesh=2`` against their single-device runs (the same
    contigs; the same epoch losses within 1e-4, one checkpoint), every
    rank's launches read from the run's summary and log.
@@ -145,7 +161,9 @@ Then one JSON line with every kernel's numbers (``ms`` its device time,
 dual pass's width 128), for K1 and K2 from that of phase 8, for the
 one-sided walk from that of phase 10; every path's in
 ``launches_by_path`` (for phase 12's paths their bf16 launches, which
-are all of them; phase 13's ``cli`` paths per rank); ``dtypes`` the element types it runs, and for K1, K2,
+are all of them; phase 13's ``cli`` and few-pairs paths per rank; phase
+5b's ``infer_gfa_hifiasm``, ``infer_gfa_raven``, ``run`` and
+``train_gfa``); ``dtypes`` the element types it runs, and for K1, K2,
 K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
 bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
 run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
@@ -283,6 +301,25 @@ ZOO_MODELS = (("gatedgcn", True), ("gcn", True), ("gat", True),
 ZOO_INIT_SEED = 7
 ZOO_FORWARD_SIDE_SUMS = {"gatedgcn": 8, "gcn": 8, "gat": 16, "sage": 8}
 ZOO_STEP_SIDE_SUMS = {"gatedgcn": 24, "gcn": 16, "gat": 48, "sage": 16}
+
+
+# the GFA route (phase gfa_route): the phase-4 genome's reads written as a
+# GFA of each dialect and built by ``cli build-graph``; the host-timing
+# build at the golden graph's node count: 4,800 reads (9,600 nodes) of
+# 900 bases over 600 kb, ~7x.  No kernel runs in build-graph: its times
+# are host-clock seconds of its stages.
+GFA_DIALECTS = ("hifiasm", "raven")
+GFA_TIMING_BUILD = dict(n_reads=4800, genome_len=600_000, read_len=900,
+                        seed=1)
+# kernels at E = 0 (a halo rank whose block holds no edge): a graph of
+# NO_EDGE_N nodes, d = H = 64; each wrapper must return its plain version's
+# empty edge rows and zero sums and statistics without a launch
+NO_EDGE_N = 5
+# a graph of fewer RC pairs than ranks (3 pairs at P = 4: one rank's block
+# is empty) on the halo path; logits within LOGIT_ATOL + LOGIT_RTOL * |x|
+# (1e-4 + 1e-4 |x|) of the single-device card forward
+FEW_PAIRS_GRAPH = dict(n_reads=3, genome_len=1500, read_len=600, seed=1,
+                       with_sequences=True, false_edge_frac=0.0)
 
 
 def expected_launches(**counts) -> dict:
@@ -971,6 +1008,75 @@ def relabelled(graph, seed: int, dev):
                              dev)
 
 
+def no_edge_checks(dev, d: int = 64) -> dict:
+    """Every wrapper at E = 0 on the card against its plain version on the
+    same inputs (a graph of NO_EDGE_N nodes, no edges; float32 and bf16
+    where the kernel runs bf16): equal outputs, no launch counted.
+    Returns each wrapper's largest difference."""
+    import numpy as np
+    import torch
+
+    from gnnome_tpu_torch.ops import DeviceGraph
+    from gnnome_tpu_torch.ops import kernels as K
+
+    n = NO_EDGE_N
+    g = DeviceGraph.build(np.zeros(0, np.int64), np.zeros(0, np.int64), n,
+                          dev)
+    u, v, v_csr, u_csr = g.roles(False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        proj = torch.randn(n, 4 * d, device=dev, generator=gen).to(dt)
+        pu, pv = proj[:, :2 * d], proj[:, 2 * d:]
+        dsum = torch.randn(n, 2 * d, device=dev, generator=gen).to(dt)
+        bn = torch.stack([torch.zeros(d), torch.ones(d), torch.ones(d),
+                          torch.zeros(d)]).to(dev, dt)
+
+        def edges(w):
+            return torch.zeros(0, w, dtype=dt, device=dev)
+
+        calls = {
+            "k1_gather_gate": ((u, v, pu, pv, edges(d)), None),
+            "k2_aggregate": ((u, v, v_csr, u_csr, edges(2 * d),
+                              edges(2 * d)), (u, v, edges(2 * d),
+                                              edges(2 * d), n)),
+            "k3_edge_stage": ((u, v, v_csr, u_csr, pu, pv, edges(d),
+                               edges(d), bn), (u, v, pu, pv, edges(d),
+                                               edges(d), bn)),
+            "k6_score_gate": ((u, v, pu, edges(d)), None),
+            "k7_gate_stats": ((u, v, pu[:, :d], pv[:, :d], edges(d)), None),
+            "k8_train_layer_bwd": ((u, v, v_csr, u_csr, dsum, dsum, pu, pv,
+                                    edges(d), edges(d), edges(d), bn),
+                                   (u, v, dsum, dsum, pu, pv, edges(d),
+                                    edges(d), edges(d), bn)),
+            "k9_aggregate": ((u, v, v_csr, u_csr, edges(d)),
+                             (u, v, edges(d), n)),
+        }
+        if dt == torch.float32:
+            calls["k2_side_sum"] = ((u, u_csr, edges(d)), (u, edges(d), n))
+        for name, (args, plain_args) in calls.items():
+            fn = K.KERNELS[name]
+            plain = getattr(K, f"{name}_plain")
+            K.reset_launch_counts()
+            got = fn(*args)
+            check(K.launch_counts() == expected_launches(),
+                  f"{name} at E=0 ({dt}): no launch")
+            want = plain(*(args if plain_args is None else plain_args))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            check(len(got) == len(want) and all(
+                a.dtype == b.dtype and a.shape == b.shape
+                and a.device == b.device for a, b in zip(got, want)),
+                f"{name} at E=0 ({dt}): outputs' dtypes and shapes")
+            diff = max((float((a.double() - b.double()).abs().max())
+                        if a.numel() else 0.0) for a, b in zip(got, want))
+            check(diff == 0.0, f"{name} at E=0 ({dt}): equal to its plain "
+                  f"version (max {diff})")
+            out.setdefault(name, 0.0)
+            out[name] = max(out[name], diff)
+    return out
+
+
 def phase_kernels(seed: int, dev, per_forward: dict):
     """Each kernel vs its plain version at the golden graph's shapes, and
     K2, K3, K7, K8, K9 at widths above 128 on the same graph."""
@@ -1202,6 +1308,8 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         wide[f"flip={flip}"] = r
     wide["bitwise_reproducible"] = True
     out["wide"] = wide
+    out["no_edges"] = {"nodes": NO_EDGE_N,
+                       "max_abs_diff": no_edge_checks(dev)}
     emit("kernels", graph={"nodes": N, "edges": E}, d=d, H=H, seed=seed,
          **out)
     return out
@@ -1433,7 +1541,6 @@ def phase_infer():
     """The main path: ``cli infer`` on the card, counters from 0."""
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.ops import kernels as K
-    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
 
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1451,18 +1558,241 @@ def phase_infer():
     check(counts == {**{k: 0 for k in K.KERNELS},
                      "k3_edge_stage": 8, "k6_score_gate": 1},
           f"eval-path launches {counts}")
-    fasta = os.path.join(savedir, "assembly", "0_assembly.fasta")
+    contig = exact_top_contig(
+        os.path.join(savedir, "assembly", "0_assembly.fasta"), genome)
+    emit("infer", dataset={k: v for k, v in INFER_GRAPH.items()},
+         dataset_build_s=build_s, wall_s=wall_s, timing_s=summary["timing"],
+         peak_rss_mb=summary["peak_rss_mb"], **contig, launches=counts)
+    return counts
+
+
+STUB_HIFIASM = """#!/bin/sh
+# stub hifiasm for ``cli run``: writes the prepared GFA as
+# <-o prefix>.bp.raw.r_utg.gfa, the file hifiasm --prt-raw writes
+out=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift 2;; *) shift;; esac
+done
+cp "{gfa}" "$out.bp.raw.r_utg.gfa"
+"""
+
+# the host-timing build, in a process of its own: writes the reads as a
+# hifiasm GFA (timed apart), then ``cli build-graph``; prints one JSON line.
+# Its peak RSS is sampled from /proc/self/statm every 2 ms while the build
+# runs (None where statm is missing): ``cli build-graph``'s own figure,
+# getrusage's ru_maxrss, survives execve, so a child of this many-GB
+# process reports the parent's resident set from the fork
+TIMING_BUILD = r"""
+import json, os, sys, threading, time
+import numpy as np
+from gnnome_tpu_torch import cli
+from gnnome_tpu_torch.graphs.synthetic import (
+    random_genome, simulate_reads_from_genome, write_synthetic_gfa)
+spec, root, threads = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+t0 = time.perf_counter()
+rng = np.random.default_rng(spec["seed"])
+genome = random_genome(spec["genome_len"], rng)
+recs, st, en, sd = simulate_reads_from_genome(
+    genome, spec["n_reads"], spec["read_len"], rng)
+gfa, reads = f"{root}/g.gfa", f"{root}/reads.fasta"
+write_synthetic_gfa(recs, st, en, sd, gfa, reads, dialect="hifiasm")
+write_s = time.perf_counter() - t0
+page, peak, done = os.sysconf("SC_PAGE_SIZE"), [0], threading.Event()
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * page
+def sample():
+    while not done.is_set():
+        peak[0] = max(peak[0], rss())
+        done.wait(0.002)
+try:
+    rss()
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+except OSError:
+    sampler = None
+t0 = time.perf_counter()
+r = cli.main(["build-graph", "--gfa", gfa, "--reads", reads, "--asm",
+              "hifiasm", "--out", f"{root}/ds", "--threads", threads,
+              "--training"])
+wall_s = time.perf_counter() - t0
+done.set()
+if sampler is not None:
+    sampler.join()
+print(json.dumps({"write_gfa_s": write_s, "build_graph_wall_s": wall_s,
+                  "stages_s": r["timing"],
+                  "sampled_peak_rss_mb": peak[0] / 2 ** 20 if sampler
+                  else None, "ru_maxrss_mb": r["peak_rss_mb"]}))
+"""
+
+
+def write_reads_gfa(root: str, dialect: str, spec=None):
+    """The reads of ``synthetic_assembly_graph(**spec)`` (default: the
+    phase-4 graph, INFER_GRAPH; no false edges) as a GFA of ``dialect`` and
+    a FASTA under ``root``: the same genome and reads, drawn the same way
+    from the seed.  Returns ``(gfa, reads, genome)``."""
+    import numpy as np
+
+    from gnnome_tpu_torch.graphs.synthetic import (random_genome,
+                                                   simulate_reads_from_genome,
+                                                   write_synthetic_gfa)
+
+    spec = spec or INFER_GRAPH
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(spec["seed"])
+    genome = random_genome(spec["genome_len"], rng)
+    records, starts, ends, strands = simulate_reads_from_genome(
+        genome, spec["n_reads"], spec["read_len"], rng)
+    gfa = os.path.join(root, f"{dialect}.gfa")
+    reads = os.path.join(root, f"{dialect}_reads.fasta")
+    write_synthetic_gfa(records, starts, ends, strands, gfa, reads,
+                        dialect=dialect)
+    return gfa, reads, genome
+
+
+def exact_top_contig(fasta: str, genome: str) -> dict:
+    """The longest contig of ``fasta``: its length, and whether it is an
+    exact substring of the genome or of its reverse complement (checked,
+    with the length threshold)."""
+    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
+
     contigs = list(read_fastx(fasta))
     top = max(contigs, key=lambda c: len(c.seq))
     exact = top.seq in genome or top.seq in reverse_complement(genome)
-    check(exact, "longest contig is an exact substring of the genome")
-    check(len(top.seq) >= INFER_LEN_THRESHOLD, "longest contig length")
-    emit("infer", dataset={k: v for k, v in INFER_GRAPH.items()},
-         dataset_build_s=build_s, wall_s=wall_s, timing_s=summary["timing"],
-         peak_rss_mb=summary["peak_rss_mb"], num_contigs=len(contigs),
-         longest_contig=len(top.seq), exact_substring=exact,
-         genome_len=len(genome), launches=counts)
-    return counts
+    check(exact, f"{fasta}: longest contig an exact substring of the genome")
+    check(len(top.seq) >= INFER_LEN_THRESHOLD, f"{fasta}: longest contig "
+          f"{len(top.seq)}")
+    return {"num_contigs": len(contigs), "longest_contig": len(top.seq),
+            "exact_substring": exact, "genome_len": len(genome)}
+
+
+def phase_gfa_route():
+    """The front of the main path, with the port alone: the phase-4
+    genome's reads as a hifiasm and a raven GFA, ``cli build-graph`` on
+    each (host) and ``cli infer`` on the card (8 K3 + 1 K6, an exact
+    contig); ``cli run`` with a stub hifiasm (the FASTA of build-graph +
+    infer, byte for byte); ``cli build-graph --training`` then one ``cli
+    train --overfit`` epoch on the card (8/8/8/1/1 K7/K3/K8/K6/K9 per
+    unit); the host-timing build at the golden graph's node count in a
+    process of its own (stage seconds, peak RSS).  Counters are set to 0
+    just before each card path.  Returns those paths' launches."""
+    import numpy as np
+
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "gfa_route")
+    shutil.rmtree(root, ignore_errors=True)
+    threads = str(min(8, os.cpu_count() or 1))
+    decode = ["--set", f"decode.len_threshold={INFER_LEN_THRESHOLD}"]
+    fwd = expected_launches(k3_edge_stage=8, k6_score_gate=1)
+    paths, builds, infers, gfas = {}, {}, {}, {}
+    for dialect in GFA_DIALECTS:
+        gfas[dialect] = write_reads_gfa(os.path.join(root, "gfa"), dialect)
+        gfa, reads, genome = gfas[dialect]
+        ds = os.path.join(root, f"ds_{dialect}")
+        t0 = time.perf_counter()
+        r = cli.main(["build-graph", "--gfa", gfa, "--reads", reads,
+                      "--asm", dialect, "--out", ds, "--threads", threads])
+        builds[dialect] = {"wall_s": time.perf_counter() - t0,
+                           "stages_s": r["timing"]}
+        savedir = os.path.join(ds, dialect)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli.main(["infer", "--data", ds, "--asm", dialect,
+                            "--out", savedir, "--model", WEIGHTS, *decode])
+        wall_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        check(summary["device"].startswith("cuda"), "infer ran on the card")
+        check(counts == fwd, f"gfa {dialect} infer launches {counts}")
+        paths[f"infer_gfa_{dialect}"] = counts
+        infers[dialect] = {
+            "wall_s": wall_s, "timing_s": summary["timing"],
+            **exact_top_contig(os.path.join(savedir, "assembly",
+                                            "0_assembly.fasta"), genome)}
+    with np.load(os.path.join(root, "ds_hifiasm", "hifiasm", "processed",
+                              "0.npz")) as g:
+        graph = {"nodes": int(g["read_length"].shape[0]),
+                 "edges": int(g["src"].shape[0])}
+
+    # cli run: stub hifiasm -> build-graph -> infer
+    gfa, reads, genome = gfas["hifiasm"]
+    tools = os.path.join(root, "tools")
+    os.makedirs(tools)
+    stub = os.path.join(tools, "hifiasm")
+    with open(stub, "w") as f:
+        f.write(STUB_HIFIASM.format(gfa=gfa))
+    os.chmod(stub, 0o755)
+    out = os.path.join(root, "run")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["run", "-r", reads, "-o", out, "-t", threads, "-m", WEIGHTS,
+              "--set", f"paths.hifiasm_dir={tools}", *decode])
+    run_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(counts == fwd, f"cli run launches {counts}")
+    paths["run"] = counts
+    fasta = os.path.join("hifiasm", "assembly", "0_assembly.fasta")
+    with open(os.path.join(out, fasta), "rb") as a, open(
+            os.path.join(root, "ds_hifiasm", fasta), "rb") as b:
+        same = a.read() == b.read()
+    check(same, "cli run: the FASTA of build-graph + infer, byte for byte")
+
+    # build-graph --training, then one overfit epoch on the card
+    ds = os.path.join(root, "ds_train")
+    cli.main(["build-graph", "--gfa", gfa, "--reads", reads, "--asm",
+              "hifiasm", "--out", ds, "--threads", threads, "--training"])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    best = cli.main(["train", "--train", ds, "--valid", ds, "--asm",
+                     "hifiasm", "--name", "gfa", "--overfit",
+                     "--set", "train.num_epochs=1",
+                     "--set", f"paths.checkpoints_path={root}/ckpt",
+                     "--set", f"paths.models_path={root}/models"])
+    train_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    units = counts["k9_aggregate"]
+    check(units >= 1 and counts["k7_gate_stats"] == 8 * units
+          and counts["k8_train_layer_bwd"] == 8 * units,
+          f"gfa train launches {counts}")
+    check(counts == expected_launches(**{k: units * n for k, n in
+                                         TRAIN_STEP_LAUNCHES.items()}),
+          f"gfa train launches: {units} units of {TRAIN_STEP_LAUNCHES}, "
+          f"got {counts}")
+    with open(os.path.join(root, "ckpt", "log_gfa_seed1.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    check(len(log) == 1 and np.isfinite(log[0]["train/loss"]),
+          "gfa train: one epoch (--overfit: no validation), a finite loss")
+    check(os.path.isfile(best), "gfa train: best model saved")
+    paths["train_gfa"] = counts
+
+    # the host-timing build, at the golden graph's node count
+    big = os.path.join(root, "timing")
+    os.makedirs(big)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TIMING_BUILD, json.dumps(GFA_TIMING_BUILD),
+         big, threads], capture_output=True, text=True, timeout=600,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT})
+    check(proc.returncode == 0, f"timing build failed: {proc.stderr[-2000:]}")
+    timing = json.loads(proc.stdout.strip().splitlines()[-1])
+    timing["process_s"] = time.perf_counter() - t0
+    with np.load(os.path.join(big, "ds", "hifiasm", "processed",
+                              "0.npz")) as g:
+        timing["nodes"] = int(g["read_length"].shape[0])
+        timing["edges"] = int(g["src"].shape[0])
+        labelled = "y" in g.files
+    check(timing["nodes"] == 2 * GFA_TIMING_BUILD["n_reads"] and labelled,
+          f"timing build: {timing['nodes']} nodes with labels")
+    emit("gfa_route", nvidia_smi=nvidia_smi(), threads=int(threads),
+         dataset={k: v for k, v in INFER_GRAPH.items()}, graph=graph,
+         build_graph=builds, infer=infers,
+         run={"wall_s": run_s, "same_fasta": same},
+         train={"wall_s": train_s, "units": units, "log": log[0]},
+         timing_build={"spec": GFA_TIMING_BUILD, **timing},
+         launches=paths, phase_s=time.perf_counter() - t_phase)
+    return paths
 
 
 def _step_result(model, loss, logits):
@@ -1923,7 +2253,6 @@ def phase_cli_bf16():
     phase 7's run must."""
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.ops import kernels as K
-    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
 
     root = os.path.join(WORK, "bf16")
     shutil.rmtree(root, ignore_errors=True)
@@ -1940,12 +2269,8 @@ def phase_cli_bf16():
     check(summary["device"].startswith("cuda"), "bf16 infer ran on the card")
     check(infer_counts == expected_launches(k3_edge_stage=8, k6_score_gate=1),
           f"bf16 eval-path launches {infer_counts}")
-    contigs = list(read_fastx(os.path.join(savedir, "assembly",
-                                           "0_assembly.fasta")))
-    top = max(contigs, key=lambda c: len(c.seq))
-    exact = top.seq in genome or top.seq in reverse_complement(genome)
-    check(exact, "bf16: longest contig is an exact substring of the genome")
-    check(len(top.seq) >= INFER_LEN_THRESHOLD, "bf16: longest contig length")
+    contig = exact_top_contig(
+        os.path.join(savedir, "assembly", "0_assembly.fasta"), genome)
 
     K.reset_launch_counts()
     _, overfit, train_counts = overfit_run(root, dtype="bfloat16")
@@ -1955,9 +2280,7 @@ def phase_cli_bf16():
         f"bf16 training launches {train_counts}, of them bf16 "
         f"{overfit['launches_bf16']}")
     emit("cli_bf16", overfit=overfit, train_launches=train_counts,
-         infer={"wall_s": wall_s, "timing_s": summary["timing"],
-                "num_contigs": len(contigs), "longest_contig": len(top.seq),
-                "exact_substring": exact, "genome_len": len(genome),
+         infer={"wall_s": wall_s, "timing_s": summary["timing"], **contig,
                 "launches": infer_counts},
          tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
     return train_counts, infer_counts
@@ -1976,7 +2299,6 @@ def phase_cli_unfused_bf16():
 
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.ops import kernels as K
-    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
 
     root = os.path.join(WORK, "none_bf16")
     shutil.rmtree(root, ignore_errors=True)
@@ -2005,17 +2327,11 @@ def phase_cli_unfused_bf16():
           == infer_bf16,
           f"none bf16 eval-path launches {infer_counts}, of them bf16 "
           f"{infer_bf16}")
-    contigs = list(read_fastx(os.path.join(savedir, "assembly",
-                                           "0_assembly.fasta")))
-    top = max(contigs, key=lambda c: len(c.seq))
-    exact = top.seq in genome or top.seq in reverse_complement(genome)
-    check(exact, "none bf16: longest contig is an exact substring")
-    check(len(top.seq) >= INFER_LEN_THRESHOLD, "longest contig length")
+    contig = exact_top_contig(
+        os.path.join(savedir, "assembly", "0_assembly.fasta"), genome)
     emit("cli_unfused_bf16", normalization="none", dtype="bfloat16",
          overfit=overfit, train_launches=train_counts,
-         infer={"wall_s": wall_s, "timing_s": summary["timing"],
-                "num_contigs": len(contigs), "longest_contig": len(top.seq),
-                "exact_substring": exact, "genome_len": len(genome),
+         infer={"wall_s": wall_s, "timing_s": summary["timing"], **contig,
                 "launches": infer_counts, "launches_bf16": infer_bf16},
          tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
     return overfit["launches_bf16"], infer_bf16
@@ -2027,7 +2343,6 @@ def phase_cli_layer():
     each."""
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.ops import kernels as K
-    from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
 
     root = os.path.join(WORK, "layer")
     shutil.rmtree(root, ignore_errors=True)
@@ -2051,16 +2366,10 @@ def phase_cli_layer():
     check(summary["device"].startswith("cuda"), "infer ran on the card")
     check(infer_counts == expected_launches(**UNFUSED_FORWARD_LAUNCHES),
           f"layer-norm eval-path launches {infer_counts}")
-    contigs = list(read_fastx(os.path.join(savedir, "assembly",
-                                           "0_assembly.fasta")))
-    top = max(contigs, key=lambda c: len(c.seq))
-    exact = top.seq in genome or top.seq in reverse_complement(genome)
-    check(exact, "layer norm: longest contig is an exact substring")
-    check(len(top.seq) >= INFER_LEN_THRESHOLD, "longest contig length")
+    contig = exact_top_contig(
+        os.path.join(savedir, "assembly", "0_assembly.fasta"), genome)
     emit("cli_layer", overfit=overfit, train_launches=train_counts,
-         infer={"wall_s": wall_s, "timing_s": summary["timing"],
-                "num_contigs": len(contigs), "longest_contig": len(top.seq),
-                "exact_substring": exact, "genome_len": len(genome),
+         infer={"wall_s": wall_s, "timing_s": summary["timing"], **contig,
                 "launches": infer_counts},
          tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
     return train_counts, infer_counts
@@ -2271,6 +2580,33 @@ def halo_bytes_per_layer(plan, d: int) -> dict:
     return {"p2p": p2p, "collective": R * (d + 2 * d) * 4}
 
 
+def few_pairs_checks(fwd, step, ref_lo, ref_step, what: str) -> dict:
+    """The halo eval and step on a graph of fewer RC pairs than ranks
+    against the single-device card runs: logits within 1e-4 + 1e-4 |x|,
+    the step as ``halo_step_close`` holds it (parameters after Adam
+    bitwise equal on every rank); a rank whose block holds no edge
+    launches nothing, the others 8 K3 + 1 K6 per forward and
+    16/16/16/2/2 K7/K3/K8/K6/K9 per step."""
+    edges = [r["n_edges"] for r in fwd]
+    check(0 in edges and sum(edges) == ref_lo.shape[0],
+          f"{what} few pairs: edges per rank {edges}")
+    check([r["n_edges"] for r in step] == edges,
+          f"{what} few pairs: the step's shards")
+    for res, want, kind in ((fwd, HALO_FORWARD_LAUNCHES, "eval"),
+                            (step, HALO_STEP_LAUNCHES, "step")):
+        got = [r["launches"] for r in res]
+        check(got == [expected_launches(**want) if r["n_edges"]
+                      else expected_launches() for r in res],
+              f"{what} few pairs {kind}: launches per rank {got}")
+    return {**halo_shards(fwd), "nodes": FEW_PAIRS_GRAPH["n_reads"] * 2,
+            "edges": int(ref_lo.shape[0]),
+            "eval_max_abs_logit_diff": halo_logits_close(
+                fwd[0]["logits"], ref_lo, f"{what} few pairs eval"),
+            "step": halo_step_close(step, ref_step, f"{what} few pairs step"),
+            "eval_launches_per_rank": [r["launches"] for r in fwd],
+            "step_launches_per_rank": [r["launches"] for r in step]}
+
+
 def phase_halo(dev) -> dict:
     """The halo path over ranks sharing the card: the bench mesh graph at
     P = 2 and 4 (eval, a float32 train step; a bf16 step too), the golden
@@ -2284,6 +2620,7 @@ def phase_halo(dev) -> dict:
     import torch
 
     from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
     from gnnome_tpu_torch.graphs.container import AssemblyGraph
     from gnnome_tpu_torch.graphs.synthetic import (random_bench_graph,
                                                    random_rc_bench_graph)
@@ -2309,6 +2646,10 @@ def phase_halo(dev) -> dict:
     golden = AssemblyGraph.load(GOLDEN)
     (golden_unit,) = host_units(golden, halo_cfg(dev),
                                 np.random.default_rng(0))
+    few_g, _, _, _ = synthetic_assembly_graph(**FEW_PAIRS_GRAPH)
+    (few_unit,) = host_units(few_g, halo_cfg(dev), np.random.default_rng(0))
+    few = (few_g.src, few_g.dst, few_g.num_nodes, node_features(few_g),
+           edge_features(few_g))
     graphs = {"bench": (bench.src, bench.dst, bench.n_nodes,
                         unit_features(bench), bench.e_feat),
               "golden": (golden.src, golden.dst, golden.num_nodes,
@@ -2325,8 +2666,10 @@ def phase_halo(dev) -> dict:
                                           else 0)
         if ms is not None:
             p1[f"{name}_forward_ms"] = ms
+    ref_lo["few"], _ = single_forward(dev, params, state, *few)
     ref_step = {"bench": single_step(dev, params, state, bench,
                                      reps=HALO_REPS),
+                "few": single_step(dev, params, state, few_unit),
                 "bench_bf16": single_step(dev, params, state, bench,
                                           "bfloat16"),
                 "golden": single_step(dev, params, state, golden_unit)}
@@ -2337,6 +2680,7 @@ def phase_halo(dev) -> dict:
 
     cfg32, cfg16 = halo_cfg(dev), halo_cfg(dev, "bfloat16")
     emit("halo P=1", single_device=p1, reference_s=ref_s)
+    few_paths = {}
     for P in HALO_RANKS:
         jobs = [(checks.score_job, (*graphs["bench"], params, state, cfg32,
                                     HALO_REPS)),
@@ -2345,6 +2689,7 @@ def phase_halo(dev) -> dict:
                 (checks.score_job, (*graphs["big"], params, state, cfg32,
                                     HALO_REPS)),
                 (checks.collective_job, (d, 20))]
+        names = ["bench_eval", "bench_step", "big_eval", "collectives"]
         if P == 2:
             jobs += [(checks.train_step_job, (bench, params, state, cfg16,
                                               1.0)),
@@ -2352,6 +2697,12 @@ def phase_halo(dev) -> dict:
                                          cfg32)),
                      (checks.train_step_job, (golden_unit, params, state,
                                               cfg32, 1.0))]
+            names += ["bench_step_bf16", "golden_eval", "golden_step"]
+        else:
+            jobs += [(checks.score_job, (*few, params, state, cfg32)),
+                     (checks.train_step_job, (few_unit, params, state,
+                                              cfg32, 1.0))]
+            names += ["few_pairs_eval", "few_pairs_step"]
         t0 = time.perf_counter()
         res = spawn(checks.run_jobs, P, jobs, device=str(dev),
                     deadline_s=900)
@@ -2361,9 +2712,7 @@ def phase_halo(dev) -> dict:
         fwd, step, big_fwd, coll = by_job[:4]
         row = {"spawn_s": spawn_s,
                "job_s": {name: [r["job_s"] for r in res_j] for name, res_j
-                         in zip(("bench_eval", "bench_step", "big_eval",
-                                 "collectives", "bench_step_bf16",
-                                 "golden_eval", "golden_step"), by_job)},
+                         in zip(names, by_job)},
                "collective_ms_per_rank": [
                    {k: r[k] for k in ("all_reduce", "exchange",
                                       "all_reduce_host")} for r in coll],
@@ -2411,6 +2760,13 @@ def phase_halo(dev) -> dict:
                                         f"{what} golden step"),
                 "step_launches_per_rank": halo_launch_check(
                     gstep, HALO_STEP_LAUNCHES, f"{what} golden step")}
+        else:
+            ffwd, fstep = by_job[4:6]
+            row["few_pairs"] = few_pairs_checks(ffwd, fstep, ref_lo["few"],
+                                                ref_step["few"], what)
+            for r, (a, b) in enumerate(zip(ffwd, fstep)):
+                few_paths[f"infer_halo_few_rank{r}"] = a["launches"]
+                few_paths[f"train_halo_few_rank{r}"] = b["launches"]
         emit(f"halo P={P}", transport=describe(str(dev), P), **row)
         del res, by_job
 
@@ -2434,7 +2790,6 @@ def phase_halo(dev) -> dict:
         c == expected_launches(**HALO_FORWARD_LAUNCHES)
         for c in infer_launches), f"cli infer launches {infer_launches}")
 
-    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
     g, reads, _, _ = synthetic_assembly_graph(**OVERFIT_GRAPH)
     small = write_dataset(os.path.join(root, "small"), g, reads)
     logs = {}
@@ -2472,7 +2827,7 @@ def phase_halo(dev) -> dict:
         paths[f"infer_halo_rank{r}"] = c
     for r, c in enumerate(train_launches):
         paths[f"train_halo_rank{r}"] = c
-    return paths
+    return {**paths, **few_paths}
 
 
 def main(argv=None) -> int:
@@ -2496,6 +2851,7 @@ def main(argv=None) -> int:
     k = phase_kernels(args.seed, dev, fwd32["launches_per_forward"])
     kb = phase_kernels_bf16(args.seed, dev)
     paths = {"infer": phase_infer()}
+    paths.update(phase_gfa_route())
     phase_model_bf16(dev, fwd32)
     phase_model_unfused_bf16(dev, unfused32)
     phase_train_step(dev)

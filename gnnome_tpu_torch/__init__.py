@@ -8,8 +8,8 @@ GPU runs the kernel; a tensor on the CPU runs the plain version.
 
 Sub-packages (names mirror ``gnnome_tpu``)
 ------------------------------------------
-graphs    CPU-side graph containers, ground-truth labels, overlap similarity,
-          synthetic graphs.
+graphs    CPU-side graph containers, the GFA and PAF parsers, ground-truth
+          labels, overlap similarity, walk diagnostics, synthetic graphs.
 ops       device graph (dst-sorted slots + CSR both ways), the CUDA kernels
           and their plain versions, message-passing ops.
 models    SymGatedGCN and the zoo (GatedGCN, GCN, GAT, SAGE) as
@@ -17,7 +17,8 @@ models    SymGatedGCN and the zoo (GatedGCN, GCN, GAT, SAGE) as
           features, weights.
 train     training loop, steps, losses, metrics.
 decode    greedy path decoding over CSR + assembly FASTA emission.
-data      dataset directory layout.
+data      dataset directory layout, the GFA build, read simulation,
+          train/valid splits, external-tool installation.
 utils     FASTA/Q I/O, seeding, timing.
 """
 

@@ -9,24 +9,28 @@ translate directly:
     <root>/<assembler>/info/{idx}_reads.npz  packed ReadStore
     <root>/<assembler>/info/{idx}_aux.pkl    read_to_node / node_to_read maps
 
-``process()`` and ``save_parsed()`` (run the external assembler, parse its
-GFA into the layout above) need the GFA parser (``graphs/gfa.py``), which
-this package does not carry yet: they raise ``NotImplementedError``.  Build a
-dataset with ``gnnome_tpu.cli build-graph`` or, for tests and smoke runs,
-save an ``AssemblyGraph``/``ReadStore`` pair into the layout directly.
-Unlike the reference's eager constructor, graphs are loaded lazily.
+``process()`` invokes the same external assemblers with the same flags
+(hifiasm ``--prt-raw -l0`` -> ``.bp.raw.r_utg.gfa``, graph_dataset.py:119-122;
+raven ``-p0`` -> ``graph_1.gfa``, graph_dataset.py:107-108,170-173) and then
+parses with training labels + similarities (graph_dataset.py:128,177);
+``save_parsed`` (``cli build-graph``) parses any GFA into the layout and
+reports the seconds of its stages.  The dataset is what
+``gnnome_tpu.data.dataset`` writes, file for file.  Unlike the reference's
+eager constructor, graphs are loaded lazily.
 """
 from __future__ import annotations
 
 import os
 import pickle
 import re
+import shlex
+import subprocess
 
 from ..config import Config
-from ..graphs import AssemblyGraph, ReadStore
-
-_NO_GFA = ("building a dataset from a GFA needs the GFA parser "
-           "(graphs/gfa.py), which gnnome_tpu_torch does not carry yet")
+from ..graphs import AssemblyGraph, ReadStore, parse_gfa
+from ..graphs.analyze import print_pairwise
+from ..graphs.similarity import overlap_similarities
+from ..utils.timing import Timer
 
 
 def _npz_indices(save_dir: str) -> set[int]:
@@ -103,22 +107,105 @@ class AssemblyGraphDataset:
         return len(set(range(self.n_need)) - prc) == 0
 
     # ----------------------------------------------------------------- process
+    def _raw_reads_path(self, idx: int) -> str:
+        for ext in ("fasta", "fastq", "fasta.gz", "fastq.gz", "fa", "fq"):
+            p = os.path.join(self.raw_dir, f"{idx}.{ext}")
+            if os.path.isfile(p):
+                return p
+        raise FileNotFoundError(f"No raw reads for index {idx} in {self.raw_dir}")
+
+    def _assemble(self, idx: int, reads_path: str) -> str:
+        """Run the external assembler; returns the GFA path.  Only the
+        subclasses that ``dataset_for`` returns know their assembler."""
+        raise TypeError(f"{type(self).__name__} runs no assembler; make the "
+                        "dataset with dataset_for('hifiasm' | 'raven', ...)")
+
     def process(self) -> None:
-        raise NotImplementedError(_NO_GFA)
+        prc = _npz_indices(self.save_dir)
+        for idx in sorted(set(range(self.n_need)) - prc):
+            reads_path = self._raw_reads_path(idx)
+            gfa_path = self._assemble(idx, reads_path)
+            self.save_parsed(idx, gfa_path, reads_path, training=True)
 
     def save_parsed(self, idx: int, gfa_path: str, reads_path: str,
-                    training: bool) -> None:
-        raise NotImplementedError(_NO_GFA)
+                    training: bool) -> dict:
+        """Parse ``gfa_path`` (labels from ``reads_path``'s headers when
+        ``training``), compute the overlap similarities and write graph
+        ``idx``; returns the seconds of each stage (``parse``,
+        ``similarities``, ``save``)."""
+        timer = Timer()
+        with timer.phase("parse"):
+            parsed = parse_gfa(gfa_path, reads_path=reads_path,
+                               training=training)
+        with timer.phase("similarities"):
+            g = parsed.graph
+            g.overlap_similarity = overlap_similarities(
+                g.src, g.dst, g.overlap_length, parsed.reads,
+                n_threads=self.threads)
+        with timer.phase("save"):
+            g.save(os.path.join(self.save_dir, f"{idx}.npz"))
+            parsed.reads.save(os.path.join(self.info_dir,
+                                           f"{idx}_reads.npz"))
+            with open(os.path.join(self.info_dir, f"{idx}_aux.pkl"),
+                      "wb") as f:
+                pickle.dump({"read_to_node": parsed.read_to_node,
+                             "node_to_read": parsed.node_to_read}, f)
+            # Graphia-compatible pairwise export (graph_dataset.py:135-136)
+            graphia_dir = os.path.join(self.assembly_dir, "graphia")
+            os.makedirs(graphia_dir, exist_ok=True)
+            print_pairwise(g, os.path.join(graphia_dir, f"{idx}_graph.txt"))
+        return dict(timer.phases)
 
 
 class AssemblyGraphDatasetHiFi(AssemblyGraphDataset):
     """HiFi reads -> hifiasm raw unitig graph (graph_dataset.py:76-137)."""
     assembler = "hifiasm"
 
+    def _assemble(self, idx: int, reads_path: str) -> str:
+        hifiasm = os.path.abspath(os.path.join(self.config.paths.hifiasm_dir, "hifiasm"))
+        subprocess.run(
+            f"{shlex.quote(hifiasm)} --prt-raw -o {idx}_asm "
+            f"-t{self.threads} -l0 {shlex.quote(reads_path)}",
+            shell=True, cwd=self.output_dir, check=True)
+        gfa = os.path.join(self.output_dir, f"{idx}_raw_graph.gfa")
+        os.replace(os.path.join(self.output_dir, f"{idx}_asm.bp.raw.r_utg.gfa"), gfa)
+        self._extract_hifiasm_contigs(idx)
+        for f in os.listdir(self.output_dir):  # clean scratch (graph_dataset.py:124)
+            if f.startswith(f"{idx}_asm"):
+                os.remove(os.path.join(self.output_dir, f))
+        return gfa
+
+    def _extract_hifiasm_contigs(self, idx: int) -> None:
+        """Keep hifiasm's own contigs for comparison (utils/data_utils.py:13-27)."""
+        from ..utils.fastx import FastxRecord, write_fasta
+        gfa = os.path.join(self.output_dir, f"{idx}_asm.bp.p_ctg.gfa")
+        if not os.path.isfile(gfa):
+            return
+        contigs = []
+        with open(gfa) as f:
+            n = 0
+            for line in f:
+                if line.startswith("S"):
+                    seq = line.split()[2]
+                    contigs.append(FastxRecord(f"contig_{n}", f"contig_{n}", seq))
+                    n += 1
+        write_fasta(contigs, os.path.join(self.output_dir, f"{idx}_assembly.fasta"))
+
 
 class AssemblyGraphDatasetONT(AssemblyGraphDataset):
     """ONT reads -> raven graph (graph_dataset.py:140-186)."""
     assembler = "raven"
+
+    def _assemble(self, idx: int, reads_path: str) -> str:
+        raven = os.path.abspath(os.path.join(self.config.paths.raven_dir,
+                                             "build/bin/raven"))
+        subprocess.run(
+            f"{shlex.quote(raven)} --disable-checkpoints -t{self.threads} "
+            f"-p0 {shlex.quote(reads_path)} > {idx}_assembly.fasta",
+            shell=True, cwd=self.output_dir, check=True)
+        gfa = os.path.join(self.output_dir, f"{idx}_graph_1.gfa")
+        os.replace(os.path.join(self.output_dir, "graph_1.gfa"), gfa)
+        return gfa
 
 
 def dataset_for(assembler: str, *args, **kw) -> AssemblyGraphDataset:

@@ -77,7 +77,7 @@ def score_graph(graph, params, state, cfg: Config | None = None) -> np.ndarray:
     cfg = cfg or Config()
     if cfg.compute.mesh > 1:
         from .parallel.group import spawn
-        check_compute(cfg)
+        check_compute(cfg, "infer")
         return spawn(_score_rank, cfg.compute.mesh, graph, params, state,
                      cfg, device=cfg.compute.device)[0]
     device = resolve_device(cfg.compute.device)
@@ -125,7 +125,7 @@ def run_inference(data_path: str, model_path: str, assembler: str,
     cfg = cfg or Config()
     if cfg.compute.mesh > 1 and group is None:
         from .parallel.group import spawn
-        check_compute(cfg)
+        check_compute(cfg, "infer")
         return spawn(_inference_rank, cfg.compute.mesh, data_path,
                      model_path, assembler, savedir, cfg, verbose,
                      device=cfg.compute.device)[0]

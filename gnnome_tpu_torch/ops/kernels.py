@@ -19,7 +19,10 @@ operations on bf16 tensors.  K2 and K9 sum bf16 payloads into float32
 node sums.  The one-sided K2 walk (the zoo) takes float32 only.
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
-CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper counts
+CPU; for CUDA tensors it launches the kernel or raises.  With no edges (E =
+0, a halo rank whose block holds no edge) a wrapper launches nothing and
+returns what the plain version returns: empty edge rows, zero node sums,
+zero float64 statistics.  Each wrapper counts
 its launches in ``<wrapper>.launches``, and those of its bf16 instantiation
 also in ``<wrapper>.launches_bf16`` (see ``launch_counts``), so a run can
 show that its main path went through the kernels, and in which dtype.
@@ -283,6 +286,8 @@ def k1_gather_gate(u_idx, v_idx, proj_u, proj_v, b3e):
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
     out = torch.empty((E, 3 * d), dtype=dt, device=dev)
+    if E == 0:
+        return out
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gn_k1_gather_gate(
@@ -330,6 +335,9 @@ def k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v):
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
     _check_csr(v_csr, u_csr, n, E, dev)
+    if E == 0:
+        return (torch.zeros((n, Dp), dtype=torch.float32, device=dev),
+                torch.zeros((n, Dp), dtype=torch.float32, device=dev))
     sum_u = torch.empty((n, Dp), dtype=torch.float32, device=dev)
     sum_v = torch.empty((n, Dp), dtype=torch.float32, device=dev)
     lib = _library()
@@ -376,6 +384,8 @@ def k2_side_sum(idx, csr, pay):
     _check("ptr", ptr, torch.int32, (n + 1,), dev)
     if perm is not None:
         _check("perm", perm, torch.int32, (E,), dev)
+    if E == 0:
+        return torch.zeros((n, D), dtype=torch.float32, device=dev)
     out = torch.empty((n, D), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
@@ -445,6 +455,9 @@ def k3_edge_stage(u_idx, v_idx, v_csr, u_csr, proj_u, proj_v, b3e, e_in, bn):
         _check(name, t, i32, (E,), dev)
     _check_csr(v_csr, u_csr, n, E, dev)
     e_out = torch.empty_like(b3e)
+    if E == 0:
+        return (e_out, torch.zeros((n, 2 * d), dtype=dt, device=dev),
+                torch.zeros((n, 2 * d), dtype=dt, device=dev))
     sum_v = torch.empty((n, 2 * d), dtype=dt, device=dev)
     sum_u = torch.empty((n, 2 * d), dtype=dt, device=dev)
     lib = _library()
@@ -487,6 +500,8 @@ def k6_score_gate(u_idx, v_idx, puv, be):
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, i32, (E,), dev)
     z = torch.empty((E, H), dtype=dt, device=dev)
+    if E == 0:
+        return z
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gn_k6_score_gate(E, H, _ptr(u_idx), _ptr(v_idx), _ptr(puv),
@@ -546,6 +561,8 @@ def k7_gate_stats(u_idx, v_idx, bu, bv, b3e):
     _check("b3e", b3e, dt, (E, d), dev)
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
+    if E == 0:
+        return torch.zeros(2 * d, dtype=torch.float64, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -614,8 +631,6 @@ def k8_train_layer_bwd(u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj_u,
     E, d = b3e.shape
     n = proj_u.shape[0]
     dt, i32 = _edge_dtype("K8", b3e), torch.int32
-    if n == 0:
-        raise ValueError("K8: graph without nodes")
     _check("proj_u", proj_u, dt, (n, 2 * d), dev, rows_contiguous=False)
     _check("proj_v", proj_v, dt, (n, 2 * d), dev, rows_contiguous=False)
     for name, t in (("d_sum_u", d_sum_u), ("d_sum_v", d_sum_v)):
@@ -626,9 +641,15 @@ def k8_train_layer_bwd(u_idx, v_idx, v_csr, u_csr, d_sum_u, d_sum_v, proj_u,
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, i32, (E,), dev)
     _check_csr(v_csr, u_csr, n, E, dev)
-    lib = _library()
     x = torch.empty_like(b3e)
     d_eo = torch.empty_like(b3e)
+    if E == 0:
+        return (x, d_eo, torch.zeros((n, 3 * d), dtype=dt, device=dev),
+                torch.zeros((n, 3 * d), dtype=dt, device=dev),
+                torch.zeros(2 * d, dtype=torch.float64, device=dev))
+    if n == 0:
+        raise ValueError("K8: graph without nodes")
+    lib = _library()
     node_u = torch.empty((n, 3 * d), dtype=dt, device=dev)
     node_v = torch.empty((n, 3 * d), dtype=dt, device=dev)
     partials = torch.empty((lib.gn_k8_num_blocks(n), 2 * d),
@@ -681,6 +702,8 @@ def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
     for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
         _check(name, t, torch.int32, (E,), dev)
     _check_csr(v_csr, u_csr, n, E, dev)
+    if E == 0:
+        return torch.zeros((n, 2 * H), dtype=torch.float32, device=dev)
     out = torch.empty((n, 2 * H), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):

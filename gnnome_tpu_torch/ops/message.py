@@ -90,8 +90,9 @@ def blocks_linear(x, w, b):
     (``w`` [in, out], the JAX layout): one GEMM over the blocks stacked as
     rows, ``[n, m * in] -> [n, m * out]``.  The dual pass applies a weight
     that both halves share this way, with one pass's flops."""
-    k = w.shape[0]
-    return torch.addmm(b, x.reshape(-1, k), w).view(x.shape[0], -1)
+    n, k = x.shape[0], w.shape[0]
+    m = x.shape[1] // k
+    return torch.addmm(b, x.reshape(n * m, k), w).view(n, m * w.shape[1])
 
 
 class _TrainEdgeStage(torch.autograd.Function):
@@ -185,9 +186,10 @@ class _TrainEdgeStage(torch.autograd.Function):
         d_w_uv = h.t() @ d_proj
         d_b_uv = wide(d_proj).sum(0).to(b_uv.dtype)
         k = w3.shape[0]
-        rows = d_b3e.reshape(-1, k)             # one row per column block
+        m = e.shape[1] // k
+        rows = d_b3e.reshape(e.shape[0] * m, k)  # one row per column block
         d_e = d_eo + (rows @ w3.t()).view(e.shape)
-        d_w3 = e.reshape(-1, k).t() @ rows
+        d_w3 = e.reshape(e.shape[0] * m, k).t() @ rows
         d_b3 = wide(rows).sum(0).to(b3.dtype)
         return (None, None, d_h, d_w_uv, d_b_uv, d_w3, d_b3, d_e,
                 d_gamma.to(gamma.dtype), d_beta.to(gamma.dtype), None, None)

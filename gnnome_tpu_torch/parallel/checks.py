@@ -156,9 +156,9 @@ def train_step_job(group, unit, params, state, cfg: Config,
     """One halo train step from ``(params, state)`` on ``unit`` (a
     ``train.step.HostUnit``) with Adam at ``cfg.train.lr``: on every rank
     the loss, the parameters and state after the step (numpy pytrees) and
-    the launches; on rank 0 also the summed gradients and the host-order
-    logits.  With ``reps`` also the step's time (further steps from the
-    state reached)."""
+    the launches and its shard's edge count; on rank 0 also the summed
+    gradients and the host-order logits.  With ``reps`` also the step's
+    time (further steps from the state reached)."""
     from ..train.step import make_optimizer
 
     model = _model(params, state, cfg, group.device)
@@ -177,7 +177,7 @@ def train_step_job(group, unit, params, state, cfg: Config,
     out = {"rank": group.rank, "loss": float(loss), "params": new_params,
            "state": new_state, "launches": counts,
            "launches_bf16": counts_bf16, "route": sh.plan.route,
-           "K": sh.plan.K, "R": sh.plan.R,
+           "K": sh.plan.K, "R": sh.plan.R, "n_edges": int(sh.g.n_edges),
            "grads": _copy(g_params) if group.rank == 0 else None,
            "logits": logits}
     if reps:

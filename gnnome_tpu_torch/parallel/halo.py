@@ -5,8 +5,9 @@ SymGatedGCN (eval and training, float32 and bfloat16).
 One graph is split over the P ranks of a ``parallel.group.Group``:
 
 * **Blocks.** P contiguous node ranges, cut at even ids (an RC pair ``(i,
-  i^1)`` stays together), as equal as possible.  Each edge lives with the
-  owner of its ``dst``.
+  i^1)`` stays together), as equal as possible; a graph with fewer pairs
+  than ranks leaves some blocks empty.  Each edge lives with the owner of
+  its ``dst``.
 * **Strips and overflow.** An edge's ``src`` lies in its rank's block, in
   the last K rows of the left neighbour's block or the first K of the
   right neighbour's (K: the JAX rule, the cheapest ``2K + 4·rows`` over
@@ -136,18 +137,24 @@ def build_halo_plan(src, dst, n_nodes: int, n_parts: int,
                     max_ovf_frac: float | None = MAX_OVF_FRAC
                     ) -> HaloPlan | None:
     """The plan of graph ``(src, dst)`` (host edge order) over ``n_parts``
-    ranks, or None when there is none: a block would be empty, or (with
-    ``max_ovf_frac``) every K within ``max_k_frac`` of the smallest block
-    leaves more than ``max_ovf_frac`` of it in overflow rows (JAX
-    ``build_halo_plan``, parallel/halo.py:118-243).  ``max_ovf_frac=None``
-    lifts that cap (route ``overflow-uncapped``; K then may also be the cap
-    itself)."""
+    ranks, or None when there is none: (with ``max_ovf_frac``) every K
+    within ``max_k_frac`` of the smallest block leaves more than
+    ``max_ovf_frac`` of it in overflow rows (JAX ``build_halo_plan``,
+    parallel/halo.py:118-243).  ``max_ovf_frac=None`` lifts that cap (route
+    ``overflow-uncapped``; K then may also be the cap itself).
+
+    A graph with fewer RC pairs than ranks leaves some blocks empty (JAX
+    pads the node count to a multiple of P instead, parallel/halo.py:783,
+    827).  The smallest block is then 0 rows, so K is 0: no strips, and
+    every edge whose src lies outside its dst's block takes an overflow
+    row.  An empty rank holds no rows and no edges; it joins every
+    exchange and sum with empty or zero tensors and launches no kernel."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     P = int(n_parts)
     bounds = _blocks(n_nodes, P)
     sizes = np.diff(bounds)
-    if P < 1 or sizes.min() < 1:
+    if P < 1:
         return None
     owner = np.searchsorted(bounds, dst, side="right") - 1
     start, size = bounds[owner], sizes[owner]
@@ -239,7 +246,7 @@ def plan_graph(src, dst, n_nodes: int, n_parts: int):
     """``(plan, new_of_old)``: the banded plan in the assembler's order
     (``new_of_old`` None), else after ``band_order``, else the uncapped
     plan in whichever of the two orders costs less (the assembler's on a
-    tie).  Raises when the graph has fewer node pairs than ranks."""
+    tie).  The uncapped plan always exists (K 0 at worst)."""
     plan = build_halo_plan(src, dst, n_nodes, n_parts)
     if plan is not None:
         return plan, None
@@ -254,8 +261,7 @@ def plan_graph(src, dst, n_nodes: int, n_parts: int):
     for s, d, nol in tries:
         plan = build_halo_plan(s, d, n_nodes, n_parts, max_ovf_frac=None)
         if plan is None:
-            raise ValueError(f"halo: {n_nodes} nodes cannot be split into "
-                             f"{n_parts} blocks of whole RC pairs")
+            raise ValueError(f"halo: no plan over {n_parts} ranks")
         if best is None or plan.cost < best[0].cost:
             best = (plan, nol)
     return best

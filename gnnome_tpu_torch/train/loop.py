@@ -244,7 +244,7 @@ def train(train_path: str, valid_path: str, assembler: str,
     cfg = cfg or Config()
     if cfg.compute.mesh > 1 and group is None:
         from ..parallel.group import spawn
-        check_compute(cfg)
+        check_compute(cfg, "train")
         if out_name is None:            # one name for every rank
             out_name = datetime.now().strftime("%Y-%b-%d-%H-%M-%S")
         return spawn(_train_rank, cfg.compute.mesh, train_path, valid_path,

@@ -295,20 +295,184 @@ def test_score_graph_with_mesh_spawns_ranks(graphs, weights, single_device):
     np.testing.assert_allclose(got, single_device["overflow"], **FWD_TOL)
 
 
+# ------------------------------------------- fewer RC pairs than ranks
+FEW_TOL = dict(atol=1e-4, rtol=1e-4)
+FEW_LR, FEW_PW = 1e-3, 1.3
+
+
+def _few_pairs_cfg(train: bool):
+    cfg = _cpu_cfg()
+    if train:
+        from gnnome_tpu_torch.config import ModelConfig
+
+        cfg.model = ModelConfig(num_gnn_layers=3, dropout=0.0)
+        cfg.train.masking = False
+        cfg.train.num_nodes_per_cluster = 10 ** 6
+        cfg.train.lr = FEW_LR
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def few_pairs(weights):
+    """A graph of 3 RC pairs (6 nodes, 8 edges), its single-device logits
+    with the shipped weights, one training unit, seeded init weights and
+    the single-device step's loss and logits from them."""
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+    from gnnome_tpu_torch.models import pytrees_from_model
+    from gnnome_tpu_torch.models.zoo import get_model
+    from gnnome_tpu_torch.train.step import (host_units, make_example,
+                                             make_optimizer, train_step)
+
+    g, _, _, _ = synthetic_assembly_graph(
+        n_reads=3, genome_len=1500, read_len=600, seed=1,
+        with_sequences=True)
+    assert g.num_nodes == 6 and g.num_edges > 0
+    x, e = node_features(g), edge_features(g)
+    model = load_model(*weights, _cpu_cfg(), "cpu")
+    with torch.inference_mode():
+        ref = model(DeviceGraph.build(g.src, g.dst, g.num_nodes),
+                    torch.from_numpy(x), torch.from_numpy(e)).numpy()[:, 0]
+    cfg = _few_pairs_cfg(True)
+    (unit,) = host_units(g, cfg, np.random.default_rng(0))
+    params, state = pytrees_from_model(
+        get_model(cfg.model).init_weights(7))
+    params, state = checks._copy(params), checks._copy(state)
+    single = checks._model(params, state, cfg, "cpu")
+    ex = make_example(unit.in_deg, unit.out_deg, unit.e_feat, unit.y,
+                      unit.src, unit.dst, unit.n_nodes, "cpu")
+    loss, lo = train_step(single, make_optimizer(single, FEW_LR), ex,
+                          FEW_PW, cfg, None)
+    step_logits = lo.numpy()[ex.g.slot_of_eid.numpy()]
+    return g, x, e, ref, unit, params, state, float(loss), step_logits
+
+
+@pytest.fixture(scope="module", params=[3, 4], ids=["P3", "P4"])
+def few_pairs_ranks(request, few_pairs, weights):
+    P = request.param
+    g, x, e, _, unit, params, state, _, _ = few_pairs
+    jobs = [(checks.score_job, (g.src, g.dst, g.num_nodes, x, e, *weights,
+                                _cpu_cfg())),
+            (checks.train_step_job, (unit, params, state,
+                                     _few_pairs_cfg(True), FEW_PW))]
+    return P, spawn(checks.run_jobs, P, jobs, deadline_s=600)
+
+
+def test_few_pairs_plan_leaves_a_block_empty():
+    """3 pairs over 4 ranks: one block is empty, K is 0 and every edge
+    whose src lies in another block takes an overflow row; over 3 ranks
+    every block holds one pair."""
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+
+    g, _, _, _ = synthetic_assembly_graph(
+        n_reads=3, genome_len=1500, read_len=600, seed=1)
+    for P, empty in ((3, 0), (4, 1)):
+        plan, nol = halo.plan_graph(g.src, g.dst, g.num_nodes, P)
+        src, dst = (g.src, g.dst) if nol is None else (nol[g.src],
+                                                       nol[g.dst])
+        _brute_force_check(plan, src, dst)
+        sizes = np.diff(plan.bounds)
+        assert int((sizes == 0).sum()) == empty
+        assert np.all(plan.bounds % 2 == 0)
+        if empty:
+            assert plan.K == 0
+
+
+def test_few_pairs_eval_logits_match_single_device(few_pairs_ranks,
+                                                   few_pairs):
+    P, res = few_pairs_ranks
+    ref = few_pairs[3]
+    out = res[0][0]
+    np.testing.assert_allclose(out["logits"], ref, **FEW_TOL)
+    edges = [r[0]["n_edges"] for r in res]
+    assert sum(edges) == ref.shape[0]
+    if P == 4:
+        assert 0 in edges          # the empty rank holds no edge
+
+
+def test_few_pairs_train_step_bitwise_equal_across_ranks(few_pairs_ranks,
+                                                         few_pairs):
+    """One Adam step: the loss and logits of the single-device step, and
+    parameters bitwise equal on every rank (the empty one included)."""
+    P, res = few_pairs_ranks
+    loss, logits = few_pairs[7], few_pairs[8]
+    out = res[0][1]
+    np.testing.assert_allclose(out["loss"], loss, **FWD_TOL)
+    np.testing.assert_allclose(out["logits"], logits, **FWD_TOL)
+
+    def leaves(tree, prefix=""):
+        flat = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat.update(leaves(v, f"{prefix}{k}/"))
+            else:
+                flat[prefix + k] = np.asarray(v)
+        return flat
+
+    ref = leaves(out["params"])
+    for r in res[1:]:
+        got = leaves(r[1]["params"])
+        assert got.keys() == ref.keys()
+        assert all(np.array_equal(got[k], ref[k]) for k in ref)
+        assert r[1]["loss"] == out["loss"]
+
+
 # --------------------------------------------------------------- the config
+TRAIN_REASON = ("the JAX package trains this config on one device; use "
+                "compute.mesh=0 for the same run")
+
+
+@pytest.mark.parametrize("command", ["infer", "train"])
 @pytest.mark.parametrize("override,reason", [
     ("model.normalization=layer", "model.normalization='layer'"),
     ("model.normalization=none", "model.normalization='none'"),
     ("model.model=gcn", "model.model='gcn'"),
     ("model.model=gatedgcn", "model.model='gatedgcn'")])
-def test_mesh_refuses_other_models(override, reason):
+def test_mesh_refuses_other_models(override, reason, command):
+    """The config loads (as in JAX); the entry about to run refuses with
+    its own reason: JAX ``infer`` sends these models to GSPMD, JAX
+    ``train`` trains them on one device (train/loop.py:143-158,222-223)."""
+    from gnnome_tpu_torch.config import check_compute
+
+    cfg = Config()
+    cfg.apply_overrides([override, "compute.mesh=2"])
     with pytest.raises(ValueError) as e:
-        Config().apply_overrides([override, "compute.mesh=2"])
+        check_compute(cfg, command)
     assert "batch-norm SymGatedGCN only" in str(e.value)
-    assert reason in str(e.value) and "GSPMD" in str(e.value)
+    assert reason in str(e.value)
+    if command == "infer":
+        assert "GSPMD" in str(e.value)
+    else:
+        assert TRAIN_REASON in str(e.value) and "GSPMD" not in str(e.value)
+
+
+@pytest.mark.parametrize("override", ["model.normalization=layer",
+                                      "model.model=gcn"])
+def test_cli_train_mesh_refuses_with_the_train_reason(tmp_path, override):
+    """``cli train --set compute.mesh=4`` with a model the halo path does
+    not run refuses before any rank starts, with the train reason."""
+    from gnnome_tpu_torch import cli
+
+    with pytest.raises(ValueError) as e:
+        cli.main(["train", "--train", str(tmp_path), "--valid",
+                  str(tmp_path), "--asm", "hifiasm", "--set",
+                  "compute.device=cpu", "--set", "compute.mesh=4", "--set",
+                  override])
+    assert TRAIN_REASON in str(e.value)
+
+
+def test_cli_infer_mesh_refuses_with_the_gspmd_reason(tmp_path):
+    from gnnome_tpu_torch import cli
+
+    with pytest.raises(ValueError, match="GSPMD"):
+        cli.main(["infer", "--data", str(tmp_path), "--asm", "hifiasm",
+                  "--out", str(tmp_path / "o"), "--set",
+                  "compute.device=cpu", "--set", "compute.mesh=4", "--set",
+                  "model.normalization=layer"])
 
 
 def test_mesh_from_a_jax_written_config(tmp_path):
+    from gnnome_tpu_torch.config import check_compute
+
     jax_cfg = JaxConfig()
     jax_cfg.compute.mesh = 4
     path = str(tmp_path / "c.json")
@@ -316,8 +480,10 @@ def test_mesh_from_a_jax_written_config(tmp_path):
     assert Config.load(path).compute.mesh == 4
     jax_cfg.model.normalization = "layer"
     jax_cfg.save(path)
+    cfg = Config.load(path)
+    assert cfg.compute.mesh == 4 and cfg.model.normalization == "layer"
     with pytest.raises(ValueError, match="batch-norm SymGatedGCN only"):
-        Config.load(path)
+        check_compute(cfg, "train")
 
 
 def test_halo_path_refuses_other_models():

@@ -60,6 +60,9 @@ from gnnome_tpu_torch.infer import load_model, score_model
 from gnnome_tpu_torch.models.checkpoint import load_model_weights
 from gnnome_tpu_torch import cli, native, data, decode  # noqa: F401
 from gnnome_tpu_torch.train import loop, step  # noqa: F401
+from gnnome_tpu_torch.graphs import analyze, gfa, paf  # noqa: F401
+from gnnome_tpu_torch.data import (chromosomes, simulate, split,  # noqa: F401
+                                   tools)
 
 g, _, _, _ = synthetic_assembly_graph(n_reads=40, genome_len=3000,
                                       read_len=300, seed=0)

@@ -11,13 +11,13 @@ import pytest
 import torch
 
 from gnnome_tpu import cli as jax_cli
-from gnnome_tpu.graphs.synthetic import (random_genome,
-                                         simulate_reads_from_genome,
-                                         write_synthetic_gfa)
 
 from gnnome_tpu_torch import cli
 from gnnome_tpu_torch.config import Config
 from gnnome_tpu_torch.data.dataset import dataset_for
+from gnnome_tpu_torch.graphs.synthetic import (random_genome,
+                                               simulate_reads_from_genome,
+                                               write_synthetic_gfa)
 from gnnome_tpu_torch.infer import run_inference, score_graph
 from gnnome_tpu_torch.models import load_model_weights
 from gnnome_tpu_torch.utils.fastx import read_fastx, reverse_complement
@@ -30,8 +30,7 @@ CPU = ["--set", "compute.device=cpu"]
 @pytest.fixture(scope="module")
 def e2e_dataset(tmp_path_factory):
     """The synthetic dataset of tests/test_e2e.py:16-27, built into the
-    dataset layout by the JAX package's ``build-graph`` (the port has no GFA
-    parser yet)."""
+    dataset layout by the port's ``build-graph``."""
     root = tmp_path_factory.mktemp("torch_e2e")
     rng = np.random.default_rng(11)
     genome = random_genome(30_000, rng)
@@ -41,8 +40,8 @@ def e2e_dataset(tmp_path_factory):
     write_synthetic_gfa(records, starts, ends, strands, gfa, reads,
                         dialect="hifiasm")
     ds = str(root / "ds")
-    jax_cli.main(["build-graph", "--gfa", gfa, "--reads", reads,
-                  "--asm", "hifiasm", "--out", ds, "--threads", "2"])
+    cli.main(["build-graph", "--gfa", gfa, "--reads", reads,
+              "--asm", "hifiasm", "--out", ds, "--threads", "2"])
     return ds
 
 

@@ -473,3 +473,91 @@ def test_score_gate_gradcheck(tiny, flip):
     assert torch.autograd.gradcheck(
         lambda p, b: score_gate(dg, flip, p, b), (puv, be), eps=1e-6,
         atol=1e-5)
+
+
+# ------------------------------------------------------------- no edges
+NO_EDGE_N, NO_EDGE_D = 5, 8
+
+
+def _no_edge_call(name, dt):
+    """``(wrapper call, expected outputs)`` of wrapper ``name`` on a graph
+    of ``NO_EDGE_N`` nodes and no edges: empty edge rows, zero node sums,
+    zero float64 statistics (what a halo rank whose block holds no edge
+    gets)."""
+    n, d = NO_EDGE_N, NO_EDGE_D
+    dg = DeviceGraph.build(np.zeros(0, np.int64), np.zeros(0, np.int64), n)
+    u, v, v_csr, u_csr = dg.roles(False)
+    gen = torch.Generator().manual_seed(0)
+    proj = torch.randn(n, 4 * d, generator=gen).to(dt)
+    pu, pv = proj[:, :2 * d], proj[:, 2 * d:]
+    edges = lambda w: torch.zeros(0, w, dtype=dt)  # noqa: E731
+    bn = torch.stack([torch.zeros(d), torch.ones(d), torch.ones(d),
+                      torch.zeros(d)]).to(dt)
+    f32, f64 = torch.float32, torch.float64
+    zeros = lambda *s, t=dt: torch.zeros(*s, dtype=t)  # noqa: E731
+    return {
+        "k1_gather_gate": (lambda: K.k1_gather_gate(u, v, pu, pv, edges(d)),
+                           [edges(3 * d)]),
+        "k2_aggregate": (lambda: K.k2_aggregate(u, v, v_csr, u_csr,
+                                                edges(2 * d), edges(2 * d)),
+                         [zeros(n, 2 * d, t=f32)] * 2),
+        "k2_side_sum": (lambda: K.k2_side_sum(u, u_csr, edges(d)),
+                        [zeros(n, d, t=f32)]),
+        "k3_edge_stage": (lambda: K.k3_edge_stage(u, v, v_csr, u_csr, pu, pv,
+                                                  edges(d), edges(d), bn),
+                          [edges(d), zeros(n, 2 * d), zeros(n, 2 * d)]),
+        "k6_score_gate": (lambda: K.k6_score_gate(u, v, pu, edges(d)),
+                          [edges(d)]),
+        "k7_gate_stats": (lambda: K.k7_gate_stats(u, v, pu[:, :d], pv[:, :d],
+                                                  edges(d)),
+                          [zeros(2 * d, t=f64)]),
+        "k8_train_layer_bwd": (
+            lambda: K.k8_train_layer_bwd(u, v, v_csr, u_csr, zeros(n, 2 * d),
+                                         zeros(n, 2 * d), pu, pv, edges(d),
+                                         edges(d), edges(d), bn),
+            [edges(d), edges(d), zeros(n, 3 * d), zeros(n, 3 * d),
+             zeros(2 * d, t=f64)]),
+        "k9_aggregate": (lambda: K.k9_aggregate(u, v, v_csr, u_csr, edges(d)),
+                         [zeros(n, 2 * d, t=f32)]),
+    }[name]
+
+
+@pytest.mark.parametrize("name,dt", [
+    (name, dt) for name in sorted(K.KERNELS)
+    for dt in (torch.float32, torch.bfloat16)
+    if not (name == "k2_side_sum" and dt == torch.bfloat16)])
+def test_every_wrapper_at_no_edges(name, dt):
+    """E = 0: each wrapper returns empty edge rows and zero node sums and
+    statistics, in the dtypes of its contract, and counts no launch (the
+    one-sided walk takes float32 only)."""
+    call, want = _no_edge_call(name, dt)
+    K.reset_launch_counts()
+    got = call()
+    got = list(got) if isinstance(got, tuple) else [got]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert K.launch_counts() == {k: 0 for k in K.KERNELS}
+
+
+def test_train_edge_stage_at_no_edges():
+    """The training edge stage on a graph with nodes and no edges (a halo
+    rank whose block holds none): zero sums forward, finite zero gradients
+    backward; ``n_edges`` is the whole graph's."""
+    n, d = NO_EDGE_N, NO_EDGE_D
+    dg = DeviceGraph.build(np.zeros(0, np.int64), np.zeros(0, np.int64), n)
+    gen = torch.Generator().manual_seed(1)
+    args = [torch.randn(*s, generator=gen).requires_grad_()
+            for s in ((n, d), (d, 4 * d), (4 * d,), (d, d), (d,))]
+    e = torch.zeros(0, d, requires_grad=True)
+    gamma, beta = torch.ones(d, requires_grad=True), torch.zeros(
+        d, requires_grad=True)
+    e_out, sum_v, sum_u, _, _ = train_edge_stage(dg, False, *args, e, gamma,
+                                                 beta, reduce=None,
+                                                 n_edges=10)
+    assert e_out.shape == (0, d) and not sum_v.any() and not sum_u.any()
+    (sum_v.sum() + sum_u.sum() + e_out.sum()).backward()
+    for t in (*args, gamma, beta):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert not t.grad.any()
