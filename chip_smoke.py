@@ -154,6 +154,24 @@ seconds since the script started):
    ``--set compute.mesh=2`` against their single-device runs (the same
    contigs; the same epoch losses within 1e-4, one checkpoint), every
    rank's launches read from the run's summary and log.
+14. ``sharded``: the sharded path (``compute.mesh > 1`` inference for the
+   layer-norm and norm-free SymGatedGCN and the zoo,
+   ``gnnome_tpu_torch/parallel/sharded.py``), ranks sharing the card over
+   gloo.  The single-device card forwards first (P = 1), then one spawned
+   group per P: the golden graph at P = 2 with the layer-norm and
+   norm-free SymGatedGCN and GatedGCN (directed and undirected), GCN, GAT
+   and SAGE (d = 64, 8 layers, 3 GAT heads, ``init_weights(7)``), the JAX
+   bench's graph (``random_bench_graph(262,144, 6.0)``, 1,572,864 edges)
+   at P = 2 with the layer-norm model, and the 3-pair graph at P = 4 (one
+   block empty) with the layer-norm model and GCN, whose forwards run in
+   phase 13's group of 4 ranks (a spawn less): logits within 1e-4 +
+   1e-4 |x| of the single-device card forward; per rank and forward 8 K1
+   + 8 K2 (layer norm, none), 8 one-sided walks (GatedGCN, GCN, SAGE) or
+   16 (GAT), none where the shard holds no edge; per rank the forward's
+   time, its exchanges and collectives, its bytes per forward and per
+   layer.  Then ``cli infer --set compute.mesh=2`` with phase 8's
+   layer-norm model on its dataset: phase 8's FASTA byte for byte, 8 K1 +
+   8 K2 per rank.
 
 Then one JSON line with every kernel's numbers (``ms`` its device time,
 ``call_ms`` its back-to-back call time, at the widths of its main path;
@@ -162,6 +180,7 @@ dual pass's width 128), for K1 and K2 from that of phase 8, for the
 one-sided walk from that of phase 10; every path's in
 ``launches_by_path`` (for phase 12's paths their bf16 launches, which
 are all of them; phase 13's ``cli`` and few-pairs paths per rank; phase
+14's ``cli`` path and its golden and few-pairs forwards per rank; phase
 5b's ``infer_gfa_hifiasm``, ``infer_gfa_raven``, ``run`` and
 ``train_gfa``); ``dtypes`` the element types it runs, and for K1, K2,
 K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
@@ -2340,7 +2359,8 @@ def phase_cli_unfused_bf16():
 def phase_cli_layer():
     """The layer-norm model's paths: ``cli train`` (overfit run) and ``cli
     infer`` with the model it saved, on the card, counters from 0 before
-    each."""
+    each.  Returns their launches and the model, dataset and FASTA of the
+    ``cli infer`` run."""
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.ops import kernels as K
 
@@ -2372,7 +2392,9 @@ def phase_cli_layer():
          infer={"wall_s": wall_s, "timing_s": summary["timing"], **contig,
                 "launches": infer_counts},
          tolerance={"loss_drop": OVERFIT_LOSS_DROP, "min_ap": OVERFIT_MIN_AP})
-    return train_counts, infer_counts
+    return train_counts, infer_counts, {
+        "model": best, "data": ds,
+        "fasta": os.path.join(savedir, "assembly", "0_assembly.fasta")}
 
 
 # ---------------------------------------------------------------- halo phase
@@ -2439,17 +2461,23 @@ def halo_cfg(dev, dtype: str = "float32"):
     return cfg
 
 
-def single_forward(dev, params, state, src, dst, n_nodes, x, e, reps=0):
+def single_forward(dev, params, state, src, dst, n_nodes, x, e, reps=0,
+                   cfg=None):
     """The single-device eval forward's host-order logits on ``dev`` (and
-    with ``reps`` its time)."""
+    with ``reps`` its time) of the model ``cfg.model`` names (default the
+    batch-norm SymGatedGCN), a zoo model on its processor graph."""
     import torch
 
     from gnnome_tpu_torch.infer import load_model
+    from gnnome_tpu_torch.models.zoo import processor_graph
     from gnnome_tpu_torch.ops import DeviceGraph
 
-    model = load_model(params, state, halo_cfg(dev), dev)
+    cfg = cfg or halo_cfg(dev)
+    model = load_model(params, state, cfg, dev)
     g = DeviceGraph.build(src, dst, n_nodes, dev)
+    gp = processor_graph(cfg.model, src, dst, n_nodes, dev)
     args = (g, torch.as_tensor(x, device=dev), torch.as_tensor(e, device=dev))
+    args += () if gp is None else (gp,)
     with torch.inference_mode():
         lo = model(*args)[:, 0].cpu().numpy()
         ms = cuda_ms(lambda: model(*args), reps=reps, n=1) if reps else None
@@ -2607,13 +2635,15 @@ def few_pairs_checks(fwd, step, ref_lo, ref_step, what: str) -> dict:
             "step_launches_per_rank": [r["launches"] for r in step]}
 
 
-def phase_halo(dev) -> dict:
+def phase_halo(dev, p4_jobs=()):
     """The halo path over ranks sharing the card: the bench mesh graph at
     P = 2 and 4 (eval, a float32 train step; a bf16 step too), the golden
     graph through the uncapped route (P = 2: eval, AP, a step), the
     1,048,576-node graph's eval, each P's checks in one spawn; then ``cli
     infer`` and ``cli train`` with compute.mesh=2 against their
-    single-device runs.  Returns the halo paths' per-rank launches."""
+    single-device runs.  ``p4_jobs`` join the group of 4 ranks.  Returns
+    the halo paths' per-rank launches and, for each of ``p4_jobs``, every
+    rank's result."""
     import gc
 
     import numpy as np
@@ -2703,6 +2733,8 @@ def phase_halo(dev) -> dict:
                      (checks.train_step_job, (few_unit, params, state,
                                               cfg32, 1.0))]
             names += ["few_pairs_eval", "few_pairs_step"]
+            jobs += list(p4_jobs)
+            names += [f"p4_job{i}" for i in range(len(p4_jobs))]
         t0 = time.perf_counter()
         res = spawn(checks.run_jobs, P, jobs, device=str(dev),
                     deadline_s=900)
@@ -2762,6 +2794,7 @@ def phase_halo(dev) -> dict:
                     gstep, HALO_STEP_LAUNCHES, f"{what} golden step")}
         else:
             ffwd, fstep = by_job[4:6]
+            p4_res = list(by_job[6:])
             row["few_pairs"] = few_pairs_checks(ffwd, fstep, ref_lo["few"],
                                                 ref_step["few"], what)
             for r, (a, b) in enumerate(zip(ffwd, fstep)):
@@ -2827,7 +2860,229 @@ def phase_halo(dev) -> dict:
         paths[f"infer_halo_rank{r}"] = c
     for r, c in enumerate(train_launches):
         paths[f"train_halo_rank{r}"] = c
-    return {**paths, **few_paths}
+    return {**paths, **few_paths}, p4_res
+
+
+# ------------------------------------------------------------- sharded phase
+# The sharded path (compute.mesh = P > 1 inference for every model but the
+# batch-norm SymGatedGCN, gnnome_tpu_torch/parallel/sharded.py): P ranks
+# share the one card over gloo.  Graphs: the golden graph at P = 2 with the
+# layer-norm and the norm-free SymGatedGCN and each zoo model (d = 64, 8
+# layers, 3 GAT heads, init_weights(7)); the JAX bench's graph
+# (random_bench_graph(262,144, 6.0), bench.py:183-184) at P = 2 with the
+# layer-norm model; the 3-pair graph at P = 4 (one block empty) with the
+# layer-norm model and GCN, in the halo phase's group of 4 ranks.  Bounds, set before any card run: logits within
+# LOGIT_ATOL + LOGIT_RTOL·|x| of the single-device card forward; per rank
+# and forward 8 K1 + 8 K2 (layer norm, none), 8 one-sided walks (GatedGCN,
+# GCN, SAGE) or 16 (GAT), none on a rank whose shard holds no edge; `cli
+# infer --set compute.mesh=2` with phase 8's layer-norm model on its
+# dataset writes phase 8's FASTA byte for byte.  Recorded per rank, with no
+# limit: forward ms, exchanges and collectives per forward, bytes per
+# forward and per layer.
+SHARDED_MODELS = {"layer": ("sym_gatedgcn", "layer", True),
+                  "none": ("sym_gatedgcn", "none", True),
+                  "gatedgcn": ("gatedgcn", "batch", True),
+                  "gatedgcn_undirected": ("gatedgcn", "batch", False),
+                  "gcn": ("gcn", "batch", True),
+                  "gat": ("gat", "batch", True),
+                  "sage": ("sage", "batch", True)}
+SHARDED_BENCH = dict(num_nodes=262_144, avg_degree=6.0, seed=0)
+SHARDED_FEW = ("layer", "gcn")
+SHARDED_REPS = 3
+
+
+def sharded_cfg(dev, mid: str):
+    from gnnome_tpu_torch.config import Config
+
+    name, norm, directed = SHARDED_MODELS[mid]
+    cfg = Config()
+    cfg.compute.device = str(dev)
+    cfg.model.model = name
+    cfg.model.normalization = norm
+    cfg.model.directed = directed
+    return cfg
+
+
+def sharded_weights(mid: str):
+    """Model ``mid``'s seeded init weights as numpy pytrees."""
+    from gnnome_tpu_torch.models import get_model, pytrees_from_model
+
+    model = get_model(sharded_cfg("cpu", mid).model)
+    return pytrees_from_model(model.init_weights(ZOO_INIT_SEED))
+
+
+def few_pairs_arrays():
+    """The 3-pair graph's ``(src, dst, n_nodes, x, e)``."""
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+    from gnnome_tpu_torch.models import edge_features, node_features
+
+    g, _, _, _ = synthetic_assembly_graph(**FEW_PAIRS_GRAPH)
+    return g.src, g.dst, g.num_nodes, node_features(g), edge_features(g)
+
+
+def sharded_few_jobs(dev) -> list:
+    """The sharded forwards of the 3-pair graph (SHARDED_FEW), which run in
+    the halo phase's group of 4 ranks (a spawn of 4 ranks on the shared
+    card costs ~35 s) and are checked in the sharded phase."""
+    from gnnome_tpu_torch.parallel import checks
+
+    few = few_pairs_arrays()
+    return [(checks.score_job, (*few, *sharded_weights(mid),
+                                sharded_cfg(dev, mid)))
+            for mid in SHARDED_FEW]
+
+
+def sharded_launches(mid: str) -> dict:
+    name = SHARDED_MODELS[mid][0]
+    if name == "sym_gatedgcn":
+        return UNFUSED_FORWARD_LAUNCHES
+    return {"k2_side_sum": ZOO_FORWARD_SIDE_SUMS[name]}
+
+
+def sharded_rank_rows(res, mid: str, d: int, what: str) -> list:
+    """Every rank's record of a sharded forward (``checks.score_job``):
+    its launches (checked: the model's per forward, none where its shard
+    holds no edge), shard sizes, exchanges and collectives, bytes per
+    forward and per layer (a layer extends d-wide float32 rows of the
+    processor graph's plan; the SymGatedGCN also returns 2d-wide sums),
+    forward times."""
+    zoo = SHARDED_MODELS[mid][0] != "sym_gatedgcn"
+    rows = []
+    for r in res:
+        p = r["proc"] or r
+        want = sharded_launches(mid) if p["n_edges"] else {}
+        check(r["launches"] == expected_launches(**want),
+              f"{what} rank {r['rank']}: launches {r['launches']}")
+        P = len(res)
+        nbrs = (r["rank"] > 0) + (r["rank"] < P - 1)
+        w = 4 * (d if zoo else 3 * d)
+        rows.append({"rank": r["rank"], "n_ext": r["n_ext"],
+                     "edges": r["n_edges"], "proc": r["proc"],
+                     "launches": {k: n for k, n in r["launches"].items()
+                                  if n},
+                     "calls_per_forward": r["calls"],
+                     "bytes_per_forward": r["bytes"],
+                     "bytes_per_layer": {"p2p": nbrs * p["K"] * w,
+                                         "collective": p["R"] * w},
+                     "forward_ms": r.get("forward")})
+    return rows
+
+
+def phase_sharded(dev, layer_run: dict, few_res: list) -> dict:
+    """The sharded path over ranks sharing the card: the golden graph at
+    P = 2 with every model it runs and the bench graph at P = 2 (layer
+    norm) in one spawn, and the 3-pair graph at P = 4 (layer norm, GCN;
+    ``few_res``: every rank's result of each ``sharded_few_jobs`` job, run
+    in the halo phase's group), against the single-device card forwards;
+    then ``cli infer`` with compute.mesh=2 and phase 8's layer-norm model
+    against phase 8's FASTA.  Returns the sharded paths' per-rank
+    launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.graphs.synthetic import random_bench_graph
+    from gnnome_tpu_torch.models import edge_features, node_features
+    from gnnome_tpu_torch.parallel import checks
+    from gnnome_tpu_torch.parallel.group import describe, spawn
+
+    t_phase = time.perf_counter()
+    golden = AssemblyGraph.load(GOLDEN)
+    bench = bench_unit(*random_bench_graph(
+        SHARDED_BENCH["num_nodes"], SHARDED_BENCH["avg_degree"],
+        seed=SHARDED_BENCH["seed"]), SHARDED_BENCH["num_nodes"])
+    graphs = {"golden": (golden.src, golden.dst, golden.num_nodes,
+                         node_features(golden), edge_features(golden)),
+              "few": few_pairs_arrays(),
+              "bench": (bench.src, bench.dst, bench.n_nodes,
+                        unit_features(bench), bench.e_feat)}
+    weights = {mid: sharded_weights(mid) for mid in SHARDED_MODELS}
+    d = weights["layer"][0]["gnn"]["A1"]["w"].shape[-1]
+
+    # the single-device references on the card (P = 1)
+    t0 = time.perf_counter()
+    cases = ([("golden", mid) for mid in SHARDED_MODELS]
+             + [("bench", "layer")] + [("few", mid) for mid in SHARDED_FEW])
+    ref, p1 = {}, {}
+    for gname, mid in cases:
+        ref[gname, mid], ms = single_forward(
+            dev, *weights[mid], *graphs[gname],
+            reps=SHARDED_REPS if gname != "few" else 0,
+            cfg=sharded_cfg(dev, mid))
+        if ms is not None:
+            p1[f"{gname}_{mid}_forward_ms"] = ms
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("sharded P=1", single_device=p1,
+         reference_s=time.perf_counter() - t0)
+
+    paths = {}
+    two = [c for c in cases if c[0] != "few"]
+    jobs = [(checks.score_job, (*graphs[gname], *weights[mid],
+                                sharded_cfg(dev, mid), SHARDED_REPS))
+            for gname, mid in two]
+    t0 = time.perf_counter()
+    res = spawn(checks.run_jobs, 2, jobs, device=str(dev), deadline_s=600)
+    groups = {2: (two, list(zip(*res)), {"spawn_s": time.perf_counter() - t0}),
+              4: ([("few", mid) for mid in SHARDED_FEW], few_res,
+                  {"ran_in": "the halo phase's group of 4 ranks"})}
+    del res
+    for P, (jobs_of, by_job, row) in groups.items():
+        for (gname, mid), by_rank in zip(jobs_of, by_job):
+            what = f"sharded P={P} {gname} {mid}"
+            r0 = by_rank[0]
+            edges = [r["n_edges"] for r in by_rank]
+            check(sum(edges) == ref[gname, mid].shape[0]
+                  and all(r["logits"] is None for r in by_rank[1:]),
+                  f"{what}: edges per rank {edges}")
+            if gname == "few":
+                check(0 in edges, f"{what}: an empty rank")
+            row[f"{gname}_{mid}"] = {
+                "route": r0["route"], "K": r0["K"], "R": r0["R"],
+                "max_abs_logit_diff": halo_logits_close(
+                    r0["logits"], ref[gname, mid], what),
+                "ranks": sharded_rank_rows(by_rank, mid, d, what)}
+            if gname != "bench":
+                for r in by_rank:
+                    paths[f"infer_sharded_{gname}_{mid}_rank{r['rank']}"] = (
+                        r["launches"])
+        emit(f"sharded P={P}", transport=describe(str(dev), P), **row)
+
+    # the entry point: cli infer with compute.mesh=2 against phase 8's run
+    savedir = os.path.join(WORK, "sharded", "infer_mesh")
+    shutil.rmtree(savedir, ignore_errors=True)
+    t0 = time.perf_counter()
+    summary = cli.main(["infer", "--data", layer_run["data"], "--asm",
+                        "hifiasm", "--out", savedir, "--model",
+                        layer_run["model"], "--set",
+                        f"decode.len_threshold={INFER_LEN_THRESHOLD}",
+                        "--set", "model.normalization=layer",
+                        "--set", "compute.mesh=2"])
+    wall_s = time.perf_counter() - t0
+    with open(layer_run["fasta"], "rb") as f:
+        want = f.read()
+    with open(os.path.join(savedir, "assembly", "0_assembly.fasta"),
+              "rb") as f:
+        got = f.read()
+    check(len(want) > 0 and got == want,
+          "cli infer compute.mesh=2: phase 8's FASTA byte for byte")
+    launches = summary["rank_launches"]
+    check(summary["ranks"] == 2 and all(
+        c == expected_launches(**UNFUSED_FORWARD_LAUNCHES)
+        for c in launches), f"cli infer mesh=2 launches {launches}")
+    for r, c in enumerate(launches):
+        paths[f"infer_sharded_rank{r}"] = c
+    emit("sharded", cli_infer={"fasta_bytes": len(got), "wall_s": wall_s,
+                               "timing_s": summary["timing"],
+                               "launches_per_rank": launches},
+         d=d, layers=8, gat_num_heads=3,
+         weights=f"init_weights({ZOO_INIT_SEED})",
+         tolerance={"logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL},
+         phase_s=time.perf_counter() - t_phase)
+    return paths
 
 
 def main(argv=None) -> int:
@@ -2860,14 +3115,16 @@ def main(argv=None) -> int:
     for norm in ("layer", "none"):
         phase_train_step(dev, norm, "bfloat16", steps32[norm])
     paths["train"] = phase_train()
-    paths["train_layer"], paths["infer_layer"] = phase_cli_layer()
+    paths["train_layer"], paths["infer_layer"], layer_run = phase_cli_layer()
     paths["train_bf16"], paths["infer_bf16"] = phase_cli_bf16()
     # (the bf16 launches of these two paths: all of their launches)
     paths["train_none_bf16"], paths["infer_none_bf16"] = (
         phase_cli_unfused_bf16())
     phase_zoo(dev)
     paths["train_zoo"], paths["infer_zoo"] = phase_cli_zoo()
-    paths.update(phase_halo(dev))
+    halo_paths, few_sharded = phase_halo(dev, sharded_few_jobs(dev))
+    paths.update(halo_paths)
+    paths.update(phase_sharded(dev, layer_run, few_sharded))
 
     def row(name, src, replaces, main_path, t, errs, width):
         """The summary of kernel ``name``: times ``t`` at ``width`` (the

@@ -18,10 +18,12 @@ Every subcommand of ``gnnome_tpu.cli``, with the same flags:
 ``run`` is hifiasm, then ``build-graph``, then ``infer``.  ``infer``,
 ``train`` and ``run`` put the model on the GPU unless ``--set
 compute.device=cpu`` asks for the CPU; the other subcommands are host code.
-With ``--set compute.mesh=P`` (P > 1; the batch-norm SymGatedGCN)
-``infer`` and ``train``, started alone, spawn P ranks that split each graph
-between them (``parallel/halo.py``); the command exits nonzero if any rank
-fails.
+With ``--set compute.mesh=P`` (P > 1) ``infer`` and ``train``, started
+alone, spawn P ranks that split each graph between them: ``infer`` for
+every model (the batch-norm SymGatedGCN on ``parallel/halo.py``, the others
+on ``parallel/sharded.py``), ``train`` for the batch-norm SymGatedGCN (it
+refuses the others, which the JAX package trains on one device); the
+command exits nonzero if any rank fails.
 """
 from __future__ import annotations
 

@@ -143,13 +143,14 @@ DTYPES = ("float32", "bfloat16")
 def check_compute(cfg: "Config", command: str | None = None) -> None:
     """Raise for a compute dtype the port does not run (one outside
     ``DTYPES``; every normalisation runs both) and for a ``compute.mesh``
-    that is not a rank count.  With ``command`` (``infer`` or ``train``,
-    the entry that is about to run) also for ``compute.mesh > 1`` with a
-    model the halo path does not run: it runs the batch-norm SymGatedGCN
-    only (JAX ``halo_supported``, parallel/halo.py:477-481).  The reason
-    differs: JAX ``infer`` sends the others to its GSPMD path, which has no
-    port (infer.py:65-77); JAX ``train`` trains them on one device
-    (train/loop.py:143-158,222-223), as ``compute.mesh=0`` does here.  No
+    that is not a rank count.  With ``command`` ``train`` (the entry that
+    is about to run) also for ``compute.mesh > 1`` with a model the halo
+    path does not train: it trains the batch-norm SymGatedGCN only (JAX
+    ``halo_supported``, parallel/halo.py:477-481), and the JAX package
+    trains the others on one device (train/loop.py:143-158,222-223), as
+    ``compute.mesh=0`` does here.  ``infer`` runs every model at
+    ``mesh > 1``: the others' eval forward on the sharded path
+    (``parallel/sharded.py``, JAX's GSPMD path, infer.py:65-77).  No
     ``mesh > 1`` path runs quietly on one device."""
     dt = cfg.compute.dtype
     if dt not in DTYPES:
@@ -160,18 +161,17 @@ def check_compute(cfg: "Config", command: str | None = None) -> None:
     if not isinstance(mesh, int) or isinstance(mesh, bool) or mesh < 0:
         raise ValueError(f"compute.mesh={mesh!r}: expected 0, 1 (one "
                          "device) or the number of ranks")
-    if command is None or mesh <= 1 or (
-            cfg.model.model in ("sym_gatedgcn", "sym_gated_gcn")
-            and cfg.model.normalization == "batch"):
+    if command != "train" or mesh <= 1:
         return
-    what = (f"compute.mesh={mesh} runs the batch-norm SymGatedGCN only "
-            f"(model.model={cfg.model.model!r}, model.normalization="
-            f"{cfg.model.normalization!r}): the halo path shards that model; ")
-    if command == "train":
-        raise ValueError(what + "the JAX package trains this config on one "
-                         "device; use compute.mesh=0 for the same run")
-    raise ValueError(what + "the JAX package runs the others over GSPMD, "
-                     "which is not ported; use compute.mesh=0")
+    from .parallel.halo import halo_supported
+    if halo_supported(cfg.model):
+        return
+    raise ValueError(
+        f"compute.mesh={mesh} trains the batch-norm SymGatedGCN only "
+        f"(model.model={cfg.model.model!r}, model.normalization="
+        f"{cfg.model.normalization!r}): the halo path shards that model; "
+        "the JAX package trains this config on one device; use "
+        "compute.mesh=0 for the same run")
 
 
 def compute_dtype(cfg: "Config"):

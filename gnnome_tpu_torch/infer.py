@@ -8,13 +8,15 @@ or a zoo model, on its processor graph) on ``compute.device`` (``cuda`` by
 default: it raises when no GPU is present; ``cpu`` runs the kernels' plain
 versions).  Decoding runs on the host through the C++ library.
 
-With ``compute.mesh = P > 1`` (the batch-norm SymGatedGCN only) scoring
-runs over P ranks (``parallel/halo.py``, the counterpart of
-``gnnome_tpu/infer.py:65-77``): ``run_inference`` and ``score_graph``
-started outside a group spawn the ranks (``parallel.group.spawn``); every
-rank scores its shard of each graph whose logits are not cached, rank 0
-gathers them, writes the cache, decodes and writes the FASTA, and its
-summary is the call's.  No path falls back to one device.
+With ``compute.mesh = P > 1`` scoring runs over P ranks (the counterpart
+of ``gnnome_tpu/infer.py:65-77``): the batch-norm SymGatedGCN on the halo
+path (``parallel/halo.py``), every other model on the sharded path
+(``parallel/sharded.py``, in float32).  ``run_inference`` and
+``score_graph`` started outside a group spawn the ranks
+(``parallel.group.spawn``); every rank scores its shard of each graph
+whose logits are not cached, rank 0 gathers them, writes the cache,
+decodes and writes the FASTA, and its summary is the call's.  No path
+falls back to one device.
 """
 from __future__ import annotations
 
@@ -65,10 +67,21 @@ def score_model(model: torch.nn.Module, graph, cfg: Config,
     return logits.reshape(-1).cpu().numpy()
 
 
+def rank_scores(graph, model, cfg: Config, group):
+    """This rank's part of scoring ``graph`` over ``group``: host-order
+    logits [E] on rank 0, None on the others; the halo path for the
+    batch-norm SymGatedGCN, the sharded path for every other model."""
+    from .parallel.halo import halo_score_graph, halo_supported
+    from .parallel.sharded import sharded_score_graph
+
+    fn = (halo_score_graph if halo_supported(cfg.model)
+          else sharded_score_graph)
+    return fn(graph, model, cfg, group, verbose=True)
+
+
 def _score_rank(group, graph, params, state, cfg: Config):
-    from .parallel.halo import halo_score_graph
     model = load_model(params, state, cfg, group.device)
-    return halo_score_graph(graph, model, cfg, group, verbose=True)
+    return rank_scores(graph, model, cfg, group)
 
 
 def score_graph(graph, params, state, cfg: Config | None = None) -> np.ndarray:
@@ -99,7 +112,7 @@ def _halo_score_dataset(ds, model_path: str, cfg: Config, group,
     """Every rank scores its shard of each graph of ``ds`` that has no
     logits cache; rank 0 writes the caches.  Returns every rank's kernel
     launches (``parallel.halo.rank_launches``)."""
-    from .parallel.halo import halo_score_graph, rank_launches
+    from .parallel.halo import rank_launches
 
     model = None
     for idx, graph in ds:
@@ -109,7 +122,7 @@ def _halo_score_dataset(ds, model_path: str, cfg: Config, group,
         if model is None:
             params, state = load_model_weights(model_path)
             model = load_model(params, state, cfg, group.device)
-        scores = halo_score_graph(graph, model, cfg, group, verbose=True)
+        scores = rank_scores(graph, model, cfg, group)
         if group.rank == 0:
             np.save(predicts_path, scores)
     return rank_launches(group)

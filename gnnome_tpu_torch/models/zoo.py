@@ -61,12 +61,12 @@ def add_self_loop(src: np.ndarray, dst: np.ndarray, n_nodes: int):
     return np.concatenate([src, loops]), np.concatenate([dst, loops])
 
 
-def processor_graph(model_cfg, src, dst, n_nodes: int,
-                    device="cpu") -> DeviceGraph | None:
-    """The ``DeviceGraph`` a zoo model's processor runs on, from the host
-    edge arrays of the original graph, or None when it runs on the
-    original graph (the SymGatedGCN; a directed GatedGCN) (JAX
-    ``processor_graph_for``, zoo.py:370-382)."""
+def processor_edges(model_cfg, src, dst, n_nodes: int):
+    """The host ``(src, dst)`` of the graph a zoo model's processor runs on
+    (the original edges first, in host order, then the reversed copies,
+    then the self-loops), or None when it runs on the original graph (the
+    SymGatedGCN; a directed GatedGCN) (JAX ``processor_graph_for``,
+    zoo.py:370-382)."""
     name = model_cfg.model
     if name in SYM_NAMES:
         return None
@@ -78,7 +78,15 @@ def processor_graph(model_cfg, src, dst, n_nodes: int,
         src, dst = add_reverse_edges(src, dst)
     if self_loops:
         src, dst = add_self_loop(src, dst, n_nodes)
-    return DeviceGraph.build(src, dst, n_nodes, device)
+    return src, dst
+
+
+def processor_graph(model_cfg, src, dst, n_nodes: int,
+                    device="cpu") -> DeviceGraph | None:
+    """``processor_edges`` as a ``DeviceGraph`` on ``device``, or None."""
+    edges = processor_edges(model_cfg, src, dst, n_nodes)
+    return None if edges is None else DeviceGraph.build(*edges, n_nodes,
+                                                        device)
 
 
 def _degrees(ptr: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ from ..models.zoo import get_model
 from ..ops.kernels import launch_counts, reset_launch_counts
 from .halo import (dropout_generator, gather_edges, halo_eval_step,
                    halo_example_from_unit, halo_extend, halo_forward,
-                   halo_return, halo_score, halo_train_step, shard_graph)
+                   halo_return, halo_score, halo_supported, halo_train_step,
+                   shard_graph)
+from .sharded import sharded_forward, sharded_score
 
 
 def run_jobs(group, jobs) -> list:
@@ -129,25 +131,44 @@ def exchange_job(group, plan, seed: int, width: int) -> dict:
 
 def score_job(group, src, dst, n_nodes: int, x, e, params, state,
               cfg: Config, reps: int = 0) -> dict:
-    """The eval forward of the graph over the group: on rank 0 the
-    host-order logits, the plan (route, K, R) and the rank's launches;
-    on every rank its launches, shard sizes and bytes sent per forward,
-    and with ``reps`` its forward times."""
+    """The eval forward of the graph over the group, on the halo path for
+    the batch-norm SymGatedGCN and on the sharded path for every other
+    model (``cfg.model``): on rank 0 the host-order logits; on every rank
+    its launches, the plan (route, K, R; ``proc`` the processor graph's
+    where it has its own), its shard's sizes, the bytes it sent and the
+    exchanges and collectives it joined in the forward, and with ``reps``
+    its forward times."""
     model = _model(params, state, cfg, group.device)
-    sent0 = dict(group.sent)
+    sent0, calls0 = dict(group.sent), dict(group.calls)
     reset_launch_counts()
-    logits, sh = halo_score(model, cfg, group, src, dst, n_nodes, x, e)
+    if halo_supported(cfg.model):
+        logits, sh = halo_score(model, cfg, group, src, dst, n_nodes, x, e)
+        proc = sh
+        dt = compute_dtype(cfg)
+
+        def forward():
+            return halo_forward(model, sh, group, dt)
+    else:
+        logits, sg = sharded_score(model, cfg, group, src, dst, n_nodes, x,
+                                   e)
+        sh, proc = sg.sh, sg.proc
+
+        def forward():
+            return sharded_forward(model, sg, group)
     _sync(group.device)
     out = {"rank": group.rank, "launches": launch_counts(),
            "launches_bf16": launch_counts(torch.bfloat16),
            "n_ext": sh.plan.n_ext(group.rank), "n_edges": int(sh.g.n_edges),
            "bytes": {k: group.sent[k] - sent0[k] for k in sent0},
+           "calls": {k: group.calls[k] - calls0[k] for k in calls0},
            "route": sh.plan.route, "K": sh.plan.K, "R": sh.plan.R,
+           "proc": None if proc is sh else {
+               "route": proc.plan.route, "K": proc.plan.K, "R": proc.plan.R,
+               "n_ext": proc.plan.n_ext(group.rank),
+               "n_edges": int(proc.g.n_edges)},
            "logits": logits}
     if reps:
-        dt = compute_dtype(cfg)
-        out["forward"] = _timed(lambda: halo_forward(model, sh, group, dt),
-                                group.device, reps)
+        out["forward"] = _timed(forward, group.device, reps)
     return out
 
 

@@ -70,13 +70,15 @@ class Group:
     """One rank of a group: its ``rank`` of ``size``, the ``device`` its
     model runs on and the transport (``backend``; ``staged``: CUDA tensors
     travel through host buffers).  ``sent`` counts the bytes this rank put
-    on the wire, by kind (``p2p``, ``collective``)."""
+    on the wire and ``calls`` the exchanges and collectives it joined, by
+    kind (``p2p``: ring exchanges; ``collective``: gathers and sums)."""
     rank: int
     size: int
     device: torch.device
     backend: str
     staged: bool
     sent: dict = field(default_factory=lambda: {"p2p": 0, "collective": 0})
+    calls: dict = field(default_factory=lambda: {"p2p": 0, "collective": 0})
     _pinned: dict = field(default_factory=dict)
 
     # ---------------------------------------------------------- staging
@@ -142,6 +144,7 @@ class Group:
             got[side] = buf
         for r in reqs:
             r.wait()
+        self.calls["p2p"] += bool(reqs)
         return (self._home(got["left"]), self._home(got["right"]))
 
     def all_gather(self, t: torch.Tensor) -> list:
@@ -151,6 +154,7 @@ class Group:
         parts = [torch.empty_like(out) for _ in range(self.size)]
         dist.all_gather(parts, out)
         self.sent["collective"] += out.numel() * out.element_size()
+        self.calls["collective"] += 1
         return [self._home(p) for p in parts]
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -174,6 +178,7 @@ class Group:
                   for r in range(self.size)] if self.rank == 0 else None)
         dist.gather(out, parts, dst=0)
         self.sent["collective"] += out.numel() * out.element_size()
+        self.calls["collective"] += 1
         if self.rank != 0:
             return None
         return [p[:c].to("cpu", copy=True) for p, c in zip(parts, counts)]

@@ -51,6 +51,7 @@ from ..models.nn import dropout, mlp2
 from ..models.norm import (BN_EPS, batch_norm_eval, batch_norm_rows,
                            update_running_stats)
 from ..models.sym_gated_gcn import GATE_EPS, SymGatedGCN, _linear
+from ..models.zoo import SYM_NAMES
 from ..ops.graph_tensors import DeviceGraph
 from ..ops.kernels import wide
 from ..ops.message import eval_edge_stage, train_edge_stage
@@ -490,6 +491,15 @@ def halo_layer(conv, sh: HaloShard, group: Group, h, e, flip: bool,
     if drop_rate > 0.0:
         h_new = dropout(h_new, drop_rate, generator)
     return h_new, e_out
+
+
+def halo_supported(model_cfg) -> bool:
+    """Whether the halo path runs the model a ``config.ModelConfig`` names:
+    the batch-norm SymGatedGCN (JAX ``halo_supported``, parallel/halo.py:
+    477-481).  ``compute.mesh > 1`` runs the others' eval forward on
+    ``parallel/sharded.py``."""
+    return (model_cfg.model in SYM_NAMES
+            and model_cfg.normalization == "batch")
 
 
 def check_model(model) -> None:

@@ -428,21 +428,23 @@ TRAIN_REASON = ("the JAX package trains this config on one device; use "
     ("model.model=gcn", "model.model='gcn'"),
     ("model.model=gatedgcn", "model.model='gatedgcn'")])
 def test_mesh_refuses_other_models(override, reason, command):
-    """The config loads (as in JAX); the entry about to run refuses with
-    its own reason: JAX ``infer`` sends these models to GSPMD, JAX
-    ``train`` trains them on one device (train/loop.py:143-158,222-223)."""
+    """The config loads (as in JAX).  ``train`` refuses these models at
+    ``compute.mesh > 1`` with its own reason: JAX ``train`` trains them on
+    one device (train/loop.py:143-158,222-223).  ``infer`` runs them on the
+    sharded path (``parallel/sharded.py``, JAX's GSPMD path) and passes the
+    check."""
     from gnnome_tpu_torch.config import check_compute
 
     cfg = Config()
     cfg.apply_overrides([override, "compute.mesh=2"])
+    if command == "infer":
+        check_compute(cfg, command)
+        return
     with pytest.raises(ValueError) as e:
         check_compute(cfg, command)
     assert "batch-norm SymGatedGCN only" in str(e.value)
     assert reason in str(e.value)
-    if command == "infer":
-        assert "GSPMD" in str(e.value)
-    else:
-        assert TRAIN_REASON in str(e.value) and "GSPMD" not in str(e.value)
+    assert TRAIN_REASON in str(e.value) and "GSPMD" not in str(e.value)
 
 
 @pytest.mark.parametrize("override", ["model.normalization=layer",
@@ -461,13 +463,44 @@ def test_cli_train_mesh_refuses_with_the_train_reason(tmp_path, override):
 
 
 def test_cli_infer_mesh_refuses_with_the_gspmd_reason(tmp_path):
+    """``cli infer --set compute.mesh=4`` with the layer-norm model, which
+    the JAX package sends to GSPMD, runs on the port's sharded path: four
+    ranks score the graph, rank 0 writes the logits of the single-device
+    forward and a FASTA."""
     from gnnome_tpu_torch import cli
+    from gnnome_tpu_torch.graphs import synthetic_assembly_graph
+    from gnnome_tpu_torch.models import get_model, pytrees_from_model
+    from gnnome_tpu_torch.models.checkpoint import save_model_weights
 
-    with pytest.raises(ValueError, match="GSPMD"):
-        cli.main(["infer", "--data", str(tmp_path), "--asm", "hifiasm",
-                  "--out", str(tmp_path / "o"), "--set",
-                  "compute.device=cpu", "--set", "compute.mesh=4", "--set",
-                  "model.normalization=layer"])
+    g, reads, _, _ = synthetic_assembly_graph(
+        n_reads=120, genome_len=12_000, read_len=500, seed=1,
+        with_sequences=True, false_edge_frac=0.0)
+    small = ["model.normalization=layer", "model.num_gnn_layers=2",
+             "model.dim_latent=16", "model.hidden_edge_scores=16"]
+    cfg = _cpu_cfg()
+    cfg.apply_overrides(small)
+    model = get_model(cfg.model).init_weights(7)
+    path = str(tmp_path / "layer.npz")
+    save_model_weights(path, *pytrees_from_model(model))
+    ds = tmp_path / "ds"
+    for sub in ("processed", "info"):
+        (ds / "hifiasm" / sub).mkdir(parents=True)
+    g.save(str(ds / "hifiasm" / "processed" / "0.npz"))
+    reads.save(str(ds / "hifiasm" / "info" / "0_reads.npz"))
+    out = ds / "hifiasm"
+    summary = cli.main(["infer", "--data", str(ds), "--asm", "hifiasm",
+                        "--out", str(out), "--model", path, "--set",
+                        "compute.device=cpu", "--set", "compute.mesh=4",
+                        "--set", "decode.len_threshold=2000",
+                        *sum((["--set", s] for s in small), [])])
+    assert summary["ranks"] == 4 and len(summary["rank_launches"]) == 4
+    with torch.inference_mode():
+        ref = model(DeviceGraph.build(g.src, g.dst, g.num_nodes),
+                    torch.from_numpy(node_features(g)),
+                    torch.from_numpy(edge_features(g))).numpy()[:, 0]
+    np.testing.assert_allclose(np.load(out / "decode" / "0_predicts.npy"),
+                               ref, **FWD_TOL)
+    assert (out / "assembly" / "0_assembly.fasta").is_file()
 
 
 def test_mesh_from_a_jax_written_config(tmp_path):
