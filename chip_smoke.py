@@ -133,6 +133,23 @@ seconds since the script started):
    bfloat16`` (overfit, 12 epochs, must learn; every launch bf16), then
    ``cli infer`` with the model it saved on phase 5's dataset (exact
    contig, 8 bf16 K1 + 8 bf16 K2).
+12b. ``probes`` (after ``kernels_bf16``, before the paths): the card
+   probes (``gnnome_tpu_torch/probes``), their library
+   (``build/libgnnome_probes.so``) built from the checkout.  Every
+   instantiated K3 variant (``csrc/probes/k3_ablate.cu``: full, edge_only,
+   sums_unstored, fixed_rows, stream_only, walk_only at K3's team sizes,
+   full also at other team sizes and ring depths) against its plain
+   version on the golden graph at d = 64 and 128, both flips, float32 and
+   bf16, ``full`` bit for bit K3; ``stream_sum`` bit for bit its plain
+   version at every point of the sweeps, float32 and bf16.  Then K3's
+   cost split (every variant at K3's own team size and depth, full's team
+   and depth sweeps; CUDA events around 10 calls queued behind a sleep
+   kernel, median of 5) on the golden graph and the JAX probe's bench
+   graph (``random_bench_graph(262,144, 6.0)``, 1,572,864 edges) at d = 64
+   and 128 in float32 and bf16, and ``dma_probe``'s K sweep (K = 1-12 at T = 768, ET = 2048) and
+   grid sweep (K = 4, T x ET constant) in bf16 and float32, 20 chained
+   calls: ms, GB/s, microseconds per block and per block input, and the
+   best GB/s against the nominal 3.35 TB/s.
 13. ``halo``: halo-exchange graph parallelism (``compute.mesh > 1``,
    ``gnnome_tpu_torch/parallel/``) with P ranks sharing the card over gloo,
    every message staged through pinned host memory.  The single-device
@@ -186,8 +203,11 @@ are all of them; phase 13's ``cli`` and few-pairs paths per rank; phase
 K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
 bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
 run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
-launches from the bf16 overfit run of phase 12), the ``nvidia-smi`` line,
-and the last line
+launches from the bf16 overfit run of phase 12); two rows for the probes'
+kernels, ``k3_ablate`` (``full`` on the bench graph, d = 64, bf16, as the
+JAX probe runs) and ``stream_sum`` (T = 768, ET = 2048, K = 4, bf16),
+whose ``launches`` count those made on the paths after phase 12b (none:
+they lie on no path); the ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero at once.
 """
@@ -1012,6 +1032,172 @@ def phase_kernels_bf16(seed: int, dev):
                     "sum64_rtol_of_magnitudes": SUM64_RTOL,
                     "k9_vs_cpu_plain_atol": 0.0})
     return out
+
+
+# the probes phase: the K3 variants against their plain versions at the
+# kernels phase's tolerances (edges within EDGE_ATOL in float32, one bf16
+# spacing in bf16; sums within_sums; walk words exact), `full` bit for bit
+# K3; stream_sum bit for bit its plain version (the same adds in the same
+# order).  Timed on the JAX probes' shapes: K3's bench graph
+# (scripts/k3_ablate.py: random_bench_graph(262,144, 6.0), 1,572,864
+# edges) and dma_probe's K and grid sweeps (bf16, d = 64, 20 chained calls)
+PROBE_BENCH = dict(num_nodes=262_144, avg_degree=6.0, seed=0)
+PROBE_WIDTHS = (64, 128)
+PROBE_K3_REPS, PROBE_DMA_REPS = 10, 20
+
+
+def k3_variant_checks(g, dev, seed: int) -> dict:
+    """Every instantiated K3 variant against its plain version on ``g`` at
+    each probe width, flip and dtype; `full` at K3's own team size and
+    depth bit for bit K3, sums_unstored's stored sums bit for bit `full`.
+    Returns the largest |difference| per dtype and width."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.probes import k3_ablate as P
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in PROBE_WIDTHS:
+            rows = P.inputs(g.n_nodes, g.n_edges, d, dtype, dev, seed)
+            worst = 0.0
+            for flip in (False, True):
+                u, v, v_csr, u_csr = g.roles(flip)
+                k3 = K.k3_edge_stage(u, v, v_csr, u_csr, *rows)
+                full = P.k3_ablate("full", u, v, v_csr, u_csr, *rows)
+                what = f"{dtype} d={d} flip={flip}"
+                check(all(torch.equal(full[k], r) for k, r in
+                          zip(("e_out", "sum_v", "sum_u"), k3)),
+                      f"K3 ablate full == K3 bitwise, {what}")
+                kept = P.k3_ablate("sums_unstored", u, v, v_csr, u_csr,
+                                   *rows, store_sums=True)
+                check(all(torch.equal(kept[k], full[k]) for k in full),
+                      f"K3 ablate sums_unstored's sums == full, {what}")
+                for variant, team, stages in sorted(P.INSTANCES):
+                    got = P.k3_ablate(variant, u, v, v_csr, u_csr, *rows,
+                                      team=team, stages=stages)
+                    ref = P.k3_ablate_plain(variant, u, v, *rows)
+                    torch.cuda.synchronize()
+                    tag = f"K3 ablate {variant}:{team}:{stages} {what}"
+                    check(set(got) == set(ref), f"{tag} outputs")
+                    for k in got:
+                        if k.startswith("walk"):
+                            check(torch.equal(got[k], ref[k]), f"{tag} {k}")
+                            continue
+                        ok = (within_edges if k == "e_out"
+                              else within_sums)(got[k], ref[k])
+                        check(ok, f"{tag} {k}")
+                        worst = max(worst, float(
+                            (got[k].float() - ref[k].float()).abs().max()))
+            out[f"{str(dtype).split('.')[1]} d={d}"] = worst
+    return out
+
+
+def stream_sum_checks(dev, seed: int) -> float:
+    """stream_sum bit for bit its plain version at every point of the
+    probe's sweeps, float32 and bf16, two chained calls; returns the
+    largest |difference|."""
+    import torch
+
+    from gnnome_tpu_torch.probes import dma_probe
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, ET, k in sorted(set(dma_probe.K_SWEEP + dma_probe.GRID_SWEEP)):
+            xs = dma_probe.inputs(k, T * ET, 64, dtype, dev, seed)
+            got = dma_probe.chain(dma_probe.stream_sum, xs, T, ET, 2)
+            ref = dma_probe.chain(
+                lambda ins, *_: dma_probe.stream_sum_plain(ins), xs, T, ET, 2)
+            worst = max(worst, float((got.float() - ref.float()).abs().max()))
+            check(torch.equal(got, ref),
+                  f"stream_sum bitwise, {dtype} T={T} ET={ET} K={k}")
+            del xs, got, ref
+    return worst
+
+
+def phase_probes(seed: int, dev) -> dict:
+    """The card probes (``gnnome_tpu_torch/probes``): the probe library
+    built, every K3 variant and stream_sum checked, then K3's cost split
+    (``k3_ablate.sweep``: every variant at K3's own team size and depth,
+    ``full``'s team and depth sweeps) on the golden graph and on the JAX
+    probe's bench graph at d = 64 and 128 in float32 and bf16, and
+    dma_probe's K and grid sweeps in bf16 and float32.  Returns the
+    kernels line's numbers of both probes."""
+    import torch
+
+    from gnnome_tpu_torch.graphs.container import AssemblyGraph
+    from gnnome_tpu_torch.graphs.synthetic import random_bench_graph
+    from gnnome_tpu_torch.ops import DeviceGraph
+    from gnnome_tpu_torch.ops import kernels as K
+    from gnnome_tpu_torch.probes import build_probes, dma_probe, time_ms
+    from gnnome_tpu_torch.probes import k3_ablate as P
+
+    t0 = time.perf_counter()
+    build_probes(force=True)
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(K.BUILD_DIR, "nvcc_probes.log")) as f:
+        ptxas = [ln.strip() for ln in f if "Used" in ln or "spill" in ln]
+    golden = DeviceGraph.from_graph(AssemblyGraph.load(GOLDEN), dev)
+    k3_err = k3_variant_checks(golden, dev, seed)
+    dma_err = stream_sum_checks(dev, seed)
+    t_checks = time.perf_counter() - t0 - build_s
+    src, dst = random_bench_graph(PROBE_BENCH["num_nodes"],
+                                  PROBE_BENCH["avg_degree"],
+                                  seed=PROBE_BENCH["seed"])
+    bench = DeviceGraph.build(src, dst, PROBE_BENCH["num_nodes"], dev)
+    split = {}
+    for gname, g in (("golden", golden), ("bench", bench)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for d in PROBE_WIDTHS:
+                split[f"{gname} {str(dtype).split('.')[1]} d={d}"] = (
+                    P.sweep(g, d, dtype, P.default_specs(d), PROBE_K3_REPS,
+                            seed))
+    dma = {str(dt).split(".")[1]: dma_probe.sweep(dev, dt, PROBE_DMA_REPS,
+                                                  seed=seed)
+           for dt in (torch.bfloat16, torch.float32)}
+    # the kernels line's rows: the JAX probes' own configurations (K3 on
+    # the bench graph at d = 64 in bf16, full at K3's team size and depth;
+    # stream_sum at T = 768, ET = 2048, K = 4 in bf16), with the plain
+    # versions timed on the same inputs
+    full = split["bench bfloat16 d=64"][0]
+    check(full["variant"] == "full", "the sweep's first row is full")
+    rows = P.inputs(bench.n_nodes, bench.n_edges, 64, torch.bfloat16, dev,
+                    seed)
+    u, v, _, _ = bench.roles(False)
+    k3_plain = time_ms(lambda: P.k3_ablate_plain("full", u, v, *rows), dev,
+                       PROBE_K3_REPS)
+    del rows
+    at = next(r for r in dma["bfloat16"]
+              if (r["T"], r["ET"], r["K"]) == (768, 2048, 4))
+    xs = dma_probe.inputs(4, 768 * 2048, 64, torch.bfloat16, dev, seed)
+    dma_plain = time_ms(lambda: dma_probe.stream_sum_plain(xs), dev,
+                        PROBE_DMA_REPS)
+    del xs
+    best = {dt: max(r["gb_per_s"] for r in rs) for dt, rs in dma.items()}
+    emit("probes", build_s=build_s, checks_s=t_checks, ptxas=ptxas,
+         graphs={"golden": {"nodes": golden.n_nodes, "edges": golden.n_edges},
+                 "bench": {"nodes": bench.n_nodes, "edges": bench.n_edges}},
+         k3_max_abs_diff=k3_err, stream_sum_max_abs_diff=dma_err,
+         k3_split=split, dma=dma, stream_best_gb_per_s=best,
+         stream_best_share_of_nominal={
+             dt: g * 1e9 / HBM_BYTES_PER_S for dt, g in best.items()},
+         tolerance={"edges": EDGE_ATOL, "bf16_edges": "one bf16 spacing",
+                    "sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL,
+                    "bf16_sums_rtol": SUM_RTOL + BF16_SPACING,
+                    "walk_words": "exact", "stream_sum": "exact",
+                    "full_vs_k3": "exact"})
+    return {"k3_ablate": {"ms": full["ms"], "plain_ms": k3_plain,
+                          "bound_ms": full["bound_ms"],
+                          "bound_by": full["bound_by"],
+                          "max_abs_err": max(k3_err.values()),
+                          "width": 64, "dtype": "bfloat16",
+                          "graph": "bench"},
+            "stream_sum": {"ms": at["ms"], "plain_ms": dma_plain,
+                           "bound_ms": at["bound_ms"],
+                           "bound_by": at["bound_by"],
+                           "max_abs_err": dma_err, "width": 64,
+                           "dtype": "bfloat16",
+                           "shape": {"T": 768, "ET": 2048, "K": 4}}}
 
 
 def relabelled(graph, seed: int, dev):
@@ -3105,6 +3291,10 @@ def main(argv=None) -> int:
     unfused32 = phase_model_unfused(dev)
     k = phase_kernels(args.seed, dev, fwd32["launches_per_forward"])
     kb = phase_kernels_bf16(args.seed, dev)
+    pr = phase_probes(args.seed, dev)
+    from gnnome_tpu_torch import probes
+
+    probes.reset_launch_counts()
     paths = {"infer": phase_infer()}
     paths.update(phase_gfa_route())
     phase_model_bf16(dev, fwd32)
@@ -3227,6 +3417,26 @@ def main(argv=None) -> int:
                            flips(k[name]) + [t["max_abs_diff"]], DUAL_D),
                      "dtypes": ["float32", "bfloat16"],
                      "bfloat16": bf16_row(name)})
+    # the probes lie on no path: their launches since the probes phase
+    # (every path after it, those this process runs), which must be none
+    probe_launches = probes.launch_counts()
+    check(not any(probe_launches.values()),
+          f"no probe kernel on a path: {probe_launches}")
+    for name, src, replaces in (
+            ("k3_ablate", "probes/k3_ablate.cu", "scripts/k3_ablate.py:169"),
+            ("stream_sum", "probes/stream_sum.cu",
+             "scripts/dma_probe.py:35")):
+        t = pr[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"gnnome_tpu_torch/csrc/{src}",
+                     "replaces": replaces,
+                     "launches": probe_launches[name],
+                     "max_abs_err": t["max_abs_err"], "width": t["width"],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": None, "dtypes": ["float32", "bfloat16"],
+                     "timed_at": {k: t[k] for k in ("dtype", "graph", "shape")
+                                  if k in t}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

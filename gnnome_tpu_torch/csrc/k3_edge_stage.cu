@@ -61,147 +61,16 @@
 // gated product; the node sums add those products in float32 in slot order
 // and are written once as bf16.  Rows are 8 bytes a lane (V = 4), so the
 // bytes of the edge streams halve.
+//
+// The passes and their launch are templates in k3_edge_stage.cuh, shared
+// with the cost-split probe (csrc/probes/k3_ablate.cu); this file
+// instantiates K3 itself: K3Part::full at the ring depth gn::kStages.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "csr_walk.cuh"
-#include "edge_math.cuh"
+#include "k3_edge_stage.cuh"
 
 namespace {
-
-using gn::kTeamThreads;
-using gn::rnd;
-using gn::Team;
-using gn::Vec;
-using gn::vld;
-using gn::vst;
-using gn::vzero;
-using gn::sigmoid_f32;
-
-constexpr int kRowsV = 4, kRowsU = 2;     // rows a slot copies, per pass
-
-// S: the element type of every row (float or __nv_bfloat16)
-template <int T, int V, class S>
-__global__ void __launch_bounds__(kTeamThreads)
-k3_pass_v(int n_nodes, int d, const int* __restrict__ v_ptr,
-          const int* __restrict__ v_perm, const int* __restrict__ v_nbr,
-          const S* __restrict__ proj_u, int64_t ldu,
-          const S* __restrict__ proj_v, int64_t ldv,
-          const S* __restrict__ b3e, const S* __restrict__ e_in,
-          const S* __restrict__ bn, S* __restrict__ e_out,
-          S* __restrict__ sum_v) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const gn::Ring<V, kRowsV, S> ring(smem);
-    const Team<T> tm;
-    const int f = blockIdx.y * (T * V) + tm.lane * V;
-    const bool on = f < d;
-    Vec<V> mu = vzero<V>(), rs = vzero<V>(), ga = vzero<V>(),
-           be = vzero<V>();
-    if (on) {
-        mu = vld<V>(bn + f);
-        rs = vld<V>(bn + d + f);
-        ga = vld<V>(bn + 2 * d + f);
-        be = vld<V>(bn + 3 * d + f);
-    }
-    const int v = tm.node;
-    if (v >= n_nodes) return;
-    Vec<V> b2 = vzero<V>(), acc_m = vzero<V>(), acc_s = vzero<V>();
-    if (on) b2 = vld<V>(proj_v + (int64_t)v * ldv + f);
-    gn::walk_slots<T, gn::kStages>(
-        tm, v_ptr[v], v_ptr[v + 1], v_perm, v_nbr,
-        [&](int st, int s, int u) {
-            if (!on) return;
-            const S* pu = proj_u + (int64_t)u * ldu + f;
-            const int64_t row = (int64_t)s * d + f;
-            ring.fetch(st, 0, pu);
-            ring.fetch(st, 1, pu + d);
-            ring.fetch(st, 2, b3e + row);
-            ring.fetch(st, 3, e_in + row);
-        },
-        [&](int st, int s) {
-            if (!on) return;
-            const Vec<V> b1 = ring.read(st, 0), a2 = ring.read(st, 1),
-                         b3 = ring.read(st, 2), ei = ring.read(st, 3);
-            Vec<V> eo;
-#pragma unroll
-            for (int i = 0; i < V; ++i) {
-                const float x = gn::gate_x<S>(b1.a[i], b2.a[i], b3.a[i]);
-                const float y = gn::bn_apply<S>(x, mu.a[i], rs.a[i],
-                                                ga.a[i], be.a[i]);
-                eo.a[i] = rnd<S>(__fadd_rn(fmaxf(y, 0.0f), ei.a[i]));
-                const float sg = rnd<S>(sigmoid_f32(eo.a[i]));
-                acc_m.a[i] = __fadd_rn(acc_m.a[i],
-                                       rnd<S>(__fmul_rn(sg, a2.a[i])));
-                acc_s.a[i] = __fadd_rn(acc_s.a[i], sg);
-            }
-            vst<V>(e_out + (int64_t)s * d + f, eo);
-        });
-    if (on) {
-        S* out = sum_v + (int64_t)v * 2 * d + f;
-        vst<V>(out, acc_m);
-        vst<V>(out + d, acc_s);
-    }
-}
-
-template <int T, int V, class S>
-__global__ void __launch_bounds__(kTeamThreads)
-k3_pass_u(int n_nodes, int d, const int* __restrict__ u_ptr,
-          const int* __restrict__ u_perm, const int* __restrict__ u_nbr,
-          const S* __restrict__ proj_v, int64_t ldv,
-          const S* __restrict__ e_out, S* __restrict__ sum_u) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const gn::Ring<V, kRowsU, S> ring(smem);
-    const Team<T> tm;
-    const int f = blockIdx.y * (T * V) + tm.lane * V;
-    const bool on = f < d;
-    const int u = tm.node;
-    if (u >= n_nodes) return;
-    Vec<V> acc_m = vzero<V>(), acc_s = vzero<V>();
-    gn::walk_slots<T, gn::kStages>(
-        tm, u_ptr[u], u_ptr[u + 1], u_perm, u_nbr,
-        [&](int st, int s, int v) {
-            if (!on) return;
-            ring.fetch(st, 0, e_out + (int64_t)s * d + f);
-            ring.fetch(st, 1, proj_v + (int64_t)v * ldv + d + f);
-        },
-        [&](int st, int) {
-            if (!on) return;
-            const Vec<V> eo = ring.read(st, 0), a3 = ring.read(st, 1);
-#pragma unroll
-            for (int i = 0; i < V; ++i) {
-                const float sg = rnd<S>(sigmoid_f32(eo.a[i]));
-                acc_m.a[i] = __fadd_rn(acc_m.a[i],
-                                       rnd<S>(__fmul_rn(sg, a3.a[i])));
-                acc_s.a[i] = __fadd_rn(acc_s.a[i], sg);
-            }
-        });
-    if (on) {
-        S* out = sum_u + (int64_t)u * 2 * d + f;
-        vst<V>(out, acc_m);
-        vst<V>(out + d, acc_s);
-    }
-}
-
-template <int T, int V, class S>
-int launch(int n_nodes, int d, const int* v_ptr, const int* v_perm,
-           const int* v_nbr, const int* u_ptr, const int* u_perm,
-           const int* u_nbr, const S* proj_u, int64_t ldu, const S* proj_v,
-           int64_t ldv, const S* b3e, const S* e_in, const S* bn, S* e_out,
-           S* sum_v, S* sum_u, cudaStream_t st) {
-    // at most 48 KB: no opt-in needed
-    constexpr int smem_v = gn::Ring<V, kRowsV, S>::bytes(gn::kStages);
-    constexpr int smem_u = gn::Ring<V, kRowsU, S>::bytes(gn::kStages);
-    static_assert(smem_v <= 48 * 1024 && smem_u <= 48 * 1024, "K3 ring");
-    constexpr int teams = kTeamThreads / T;     // one node per team
-    const dim3 grid((n_nodes + teams - 1) / teams, gn::col_chunks(d, T * V));
-    const dim3 block(kTeamThreads);
-    k3_pass_v<T, V, S><<<grid, block, smem_v, st>>>(
-        n_nodes, d, v_ptr, v_perm, v_nbr, proj_u, ldu, proj_v, ldv, b3e,
-        e_in, bn, e_out, sum_v);
-    k3_pass_u<T, V, S><<<grid, block, smem_u, st>>>(
-        n_nodes, d, u_ptr, u_perm, u_nbr, proj_v, ldv, e_out, sum_u);
-    return (int)cudaGetLastError();
-}
 
 // The team size and vector path for element type S, then the launch.
 template <class S>
@@ -215,7 +84,7 @@ int dispatch(int n_nodes, int d, const int* v_ptr, const int* v_perm,
                      && gn::rows_vec<S>({proj_u, proj_v, b3e, e_in, bn, e_out,
                                          sum_v, sum_u}, {ldu, ldv});
 #define GN_K3_LAUNCH(T, V)                                                     \
-    return launch<T, V, S>(                                                    \
+    return launch<K3Part::full, gn::kStages, T, V, S>(                        \
         n_nodes, d, v_ptr, v_perm, v_nbr, u_ptr, u_perm, u_nbr,               \
         static_cast<const S*>(proj_u), ldu, static_cast<const S*>(proj_v),    \
         ldv, static_cast<const S*>(b3e), static_cast<const S*>(e_in),         \

@@ -28,11 +28,14 @@ also in ``<wrapper>.launches_bf16`` (see ``launch_counts``), so a run can
 show that its main path went through the kernels, and in which dtype.
 
 Build: at first CUDA use, ``nvcc -gencode arch=compute_90a,code=sm_90a``
-compiles every source under ``csrc/`` (one process per source, all started
-together) and links them into ``build/libgnnome_kernels.so`` at the
-repository root, loaded with ctypes through a plain C interface.  The library
-is rebuilt when a source is newer than it.  Nothing is built or imported from
-the CUDA toolkit when this module is imported.
+compiles every source of ``SOURCES`` under ``csrc/`` (one process per
+source, all started together) and links them into
+``build/libgnnome_kernels.so`` at the repository root, loaded with ctypes
+through a plain C interface.  The library is rebuilt when a source or a
+header is newer than it.  ``build_library`` builds any such library (the
+probes' ``build/libgnnome_probes.so``, ``gnnome_tpu_torch/probes``).
+Nothing is built or imported from the CUDA toolkit when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
 SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
            "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
            "k9_aggregate.cu")
-HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh")
+HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh",
+           "k3_edge_stage.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -72,40 +76,45 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _stale() -> bool:
-    if not os.path.isfile(LIB_PATH):
+def _stale(lib_path: str, sources, headers) -> bool:
+    if not os.path.isfile(lib_path):
         return True
-    t = os.path.getmtime(LIB_PATH)
+    t = os.path.getmtime(lib_path)
     return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > t
-               for s in SOURCES + HEADERS)
+               for s in (*sources, *headers))
 
 
-def build_kernels(force: bool = False) -> str:
-    """Compile and link the kernel library if missing or stale; returns its
-    path.  The compiler's resource report (``-Xptxas -v``) is kept in
-    ``build/nvcc.log``.  Raises with the compiler output on failure."""
-    if not force and not _stale():
-        return LIB_PATH
+def build_library(lib_path: str, sources, headers=(),
+                  log_name: str = "nvcc.log", force: bool = False) -> str:
+    """Compile ``sources`` (paths under ``csrc/``, one ``nvcc`` process each,
+    all started together) and link them into the shared library
+    ``lib_path`` if it is missing or older than a source or one of
+    ``headers``; returns its path.  The compiler's resource report
+    (``-Xptxas -v``) is kept in ``build/<log_name>``.  Raises with the
+    compiler output on failure."""
+    if not force and not _stale(lib_path, sources, headers):
+        return lib_path
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}"
     objs, procs = [], []
-    for src in SOURCES:
-        obj = os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}.{tag}.o")
+    for src in sources:
+        stem = os.path.splitext(os.path.basename(src))[0]
+        obj = os.path.join(BUILD_DIR, f"{stem}.{tag}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
-    for src, p in zip(SOURCES, procs):
+    for src, p in zip(sources, procs):
         out, _ = p.communicate()
         logs.append(f"== {src} (rc={p.returncode})\n{out}")
     log = "\n".join(logs)
-    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
+    with open(os.path.join(BUILD_DIR, log_name), "w") as f:
         f.write(log)
     if any(p.returncode for p in procs):
         raise RuntimeError(f"nvcc failed:\n{log}")
-    tmp = f"{LIB_PATH}.{tag}.tmp"
+    tmp = f"{lib_path}.{tag}.tmp"
     link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
@@ -113,8 +122,14 @@ def build_kernels(force: bool = False) -> str:
         os.remove(obj)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, LIB_PATH)          # atomic for concurrent loaders
-    return LIB_PATH
+    os.replace(tmp, lib_path)          # atomic for concurrent loaders
+    return lib_path
+
+
+def build_kernels(force: bool = False) -> str:
+    """Build the kernel library (``build_library`` of ``SOURCES``); the
+    resource report is ``build/nvcc.log``."""
+    return build_library(LIB_PATH, SOURCES, HEADERS, "nvcc.log", force)
 
 
 def _library():
@@ -419,14 +434,22 @@ def k3_edge_stage_plain(u_idx, v_idx, proj_u, proj_v, b3e, e_in, bn):
     kernel's rounding points; sigma is computed in float32 and rounded, and
     the node sums add the bf16 products in float32 and round once."""
     d = b3e.shape[1]
-    n = proj_u.shape[0]
     gu = proj_u.index_select(0, u_idx)
     gv = proj_v.index_select(0, v_idx)
-    x = (gu[:, :d] + gv[:, :d]) + b3e
+    return k3_rows_plain(u_idx, v_idx, gu[:, :d], gu[:, d:], gv[:, :d],
+                         gv[:, d:], b3e, e_in, bn, proj_u.shape[0])
+
+
+def k3_rows_plain(u_idx, v_idx, b1, a2, b2, a3, b3e, e_in, bn, n: int):
+    """K3's arithmetic on rows already gathered per slot ([E, d] each):
+    ``b1`` = B1h, ``a2`` = A2h (K3: of u), ``b2`` = B2h, ``a3`` = A3h (K3:
+    of v); returns ``k3_edge_stage_plain``'s ``(e_out, sum_v, sum_u)`` for
+    ``n`` nodes."""
+    x = (b1 + b2) + b3e
     e_out = torch.relu(((x - bn[0]) * bn[1]) * bn[2] + bn[3]) + e_in
     sigma = torch.sigmoid(wide(e_out)).to(b3e.dtype)
-    sum_v = _sum_into(v_idx, torch.cat([sigma * gu[:, d:], sigma], dim=1), n)
-    sum_u = _sum_into(u_idx, torch.cat([sigma * gv[:, d:], sigma], dim=1), n)
+    sum_v = _sum_into(v_idx, torch.cat([sigma * a2, sigma], dim=1), n)
+    sum_u = _sum_into(u_idx, torch.cat([sigma * a3, sigma], dim=1), n)
     return e_out, sum_v, sum_u
 
 

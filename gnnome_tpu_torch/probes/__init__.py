@@ -1,0 +1,155 @@
+"""Card probes: the port's counterparts of the JAX package's TPU probe
+scripts, each a hand-written CUDA kernel beside its plain PyTorch version.
+
+- ``probes.k3_ablate`` (``scripts/k3_ablate.py``): K3 with parts knocked
+  out, and sweeps of its team size and ring depth, to split K3's time
+  (``csrc/probes/k3_ablate.cu`` on ``csrc/k3_edge_stage.cuh``).
+- ``probes.dma_probe`` (``scripts/dma_probe.py``): a streaming sum of K row
+  blocks on a grid of T blocks, the card's stream ceiling
+  (``csrc/probes/stream_sum.cu``).
+
+Run them with ``python -m gnnome_tpu_torch.probes.k3_ablate`` and ``python
+-m gnnome_tpu_torch.probes.dma_probe`` (``--device cpu`` runs the plain
+versions).  Their kernels lie on no path of the system, so they are built
+into a library of their own, ``build/libgnnome_probes.so``, at a probe's
+first CUDA call (resource report ``build/nvcc_probes.log``).  As for the
+kernels of ``ops/kernels.py``, a wrapper takes its plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel or raises, and
+counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import statistics
+import threading
+import time
+
+from ..ops import kernels as K
+
+SOURCES = ("probes/k3_ablate.cu", "probes/stream_sum.cu")
+LIB_PATH = os.path.join(K.BUILD_DIR, "libgnnome_probes.so")
+
+# H100 SXM data sheet: HBM3 bandwidth and the float32 (non-tensor-core)
+# peak, the rates behind every bound of PERF.md
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build_probes(force: bool = False) -> str:
+    """Build ``build/libgnnome_probes.so`` if missing or stale."""
+    return K.build_library(LIB_PATH, SOURCES, K.HEADERS, "nvcc_probes.log",
+                           force)
+
+
+def library():
+    """The probe library, built and loaded at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_probes())
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            lib.gn_k3_ablate.restype = I
+            lib.gn_k3_ablate.argtypes = [
+                I, I, I, I, I,               # part, team, stages, n_nodes, d
+                P, P, P, P, P, P,            # v_ptr, v_perm, v_nbr, u_ptr, u_perm, u_nbr
+                P, L, P, L,                  # proj_u, ldu, proj_v, ldv
+                P, P, P,                     # b3e, e_in, bn
+                P, P, P, I,                  # e_out, sum_v, sum_u, store_sums
+                P, P, I, P]                  # walk_v, walk_u, bf16, stream
+            lib.gn_stream_sum.restype = I
+            lib.gn_stream_sum.argtypes = [
+                I, P, P, I, L, I, P]         # k, inputs, out, n_blocks, words, bf16, stream
+            lib.gn_probes_error_string.restype = ctypes.c_char_p
+            lib.gn_probes_error_string.argtypes = [I]
+            _lib = lib
+        return _lib
+
+
+def raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = library().gn_probes_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def bound(nbytes: float, flops: float):
+    """Least time on the card in ms: the larger of bytes over the memory
+    rate and float32 operations over their peak; and which of the two."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / F32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def time_ms(fn, device, calls: int, repeats: int = 5) -> float:
+    """Milliseconds per call of ``fn``: on a CUDA device the median over
+    ``repeats`` of CUDA events around ``calls`` calls that the host queues
+    while the device still runs a sleep kernel, after warm-up (the device's
+    time alone: the host's share of a call, which can exceed a short
+    kernel's time, is left out); on the CPU the host clock around ``calls``
+    calls, once."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) / calls * 1e3
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize(device)
+    times, cycles = [], 1 << 24            # ~10 ms of sleep at 1.7 GHz
+    while len(times) < repeats:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        ahead = not a.query()              # the device still slept
+        b.synchronize()
+        if ahead:
+            times.append(a.elapsed_time(b) / calls)
+        else:                              # the host fell behind
+            cycles *= 2
+            if cycles > 1 << 32:
+                raise RuntimeError("time_ms: the host cannot queue the "
+                                   "calls behind a sleep kernel")
+    return statistics.median(times)
+
+
+def timed(row: dict, device, ms: float, **rates) -> dict:
+    """``row`` with a time and its rates, named by where they were taken:
+    ``ms`` and the rates on the card (CUDA events), ``cpu_ms`` and
+    ``cpu_<rate>`` for a run of the plain versions on the CPU (host clock),
+    never under the card's names."""
+    pre = "" if device.type == "cuda" else "cpu_"
+    return {**row, f"{pre}ms": ms, **{pre + k: v for k, v in rates.items()}}
+
+
+def device_label(device) -> dict:
+    """What ran: the card's name and the kernels, or the plain versions on
+    the CPU."""
+    import torch
+
+    if device.type == "cuda":
+        return {"device": torch.cuda.get_device_name(device),
+                "kernel": "cuda"}
+    return {"device": "cpu", "kernel": "plain"}
+
+
+def launch_counts() -> dict:
+    """Each probe wrapper's launches since the last reset."""
+    from . import dma_probe, k3_ablate
+
+    return {"k3_ablate": k3_ablate.k3_ablate.launches,
+            "stream_sum": dma_probe.stream_sum.launches}
+
+
+def reset_launch_counts() -> None:
+    from . import dma_probe, k3_ablate
+
+    k3_ablate.k3_ablate.launches = dma_probe.stream_sum.launches = 0

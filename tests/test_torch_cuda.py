@@ -31,7 +31,9 @@ exact, d_eo ``atol=1e-5`` (sigmoid); K2's sums as K3's; K9's exact against
 the plain version on CPU copies, where ``index_add_`` adds each node's terms
 in slot order as the kernel does, and so are the one-sided walk's; K1
 repeats the plain version's adds: exact.  The bf16 instantiations of K1,
-K2, K3, K6, K7, K8 and K9 at the end of the file state their own.
+K2, K3, K6, K7, K8 and K9 at the end of the file state their own, and so
+do the probes' kernels (``gnnome_tpu_torch/probes``: the K3 variants and
+``stream_sum``) after them.
 """
 import pytest
 import torch
@@ -738,3 +740,81 @@ def test_halo_forward_two_ranks_vs_single_device(cuda, false_edge_frac):
     for r in res:
         assert r["launches"] == {**{k: 0 for k in K.KERNELS},
                                  "k3_edge_stage": 8, "k6_score_gate": 1}
+
+
+# ----------------------------------------------------------------- probes
+# The card probes (gnnome_tpu_torch/probes): every instantiated K3 variant
+# (csrc/probes/k3_ablate.cu) against its plain version, at the tolerances
+# of K3 above (float32: e_out atol 1e-5, sums rtol 1e-5 + atol 1e-4; bf16:
+# e_out exact, sums BF16_SUM_TOL), walk words exact; `full` at K3's own
+# team size and depth bit for bit K3, and sums_unstored with its sums
+# stored bit for bit `full`.  stream_sum (csrc/probes/stream_sum.cu) bit
+# for bit its plain version: the same adds in the same order.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k3_ablate_variants_vs_plain(graphs, cuda, flip, d, dtype):
+    from gnnome_tpu_torch.probes import k3_ablate as P
+
+    graph = graphs["hub"]
+    rows = P.inputs(graph.n_nodes, graph.n_edges, d, dtype, cuda, seed=9)
+    u, v, v_csr, u_csr = graph.roles(flip)
+    k3 = K.k3_edge_stage(u, v, v_csr, u_csr, *rows)
+    full = P.k3_ablate("full", u, v, v_csr, u_csr, *rows)
+    assert all(torch.equal(full[k], r)
+               for k, r in zip(("e_out", "sum_v", "sum_u"), k3))
+    kept = P.k3_ablate("sums_unstored", u, v, v_csr, u_csr, *rows,
+                       store_sums=True)
+    assert all(torch.equal(kept[k], full[k]) for k in full)
+    bf16 = dtype == torch.bfloat16
+    sum_tol = BF16_SUM_TOL if bf16 else dict(rtol=1e-5, atol=1e-4)
+    for variant, team, stages in sorted(P.INSTANCES):
+        n0 = P.k3_ablate.launches
+        got = P.k3_ablate(variant, u, v, v_csr, u_csr, *rows, team=team,
+                          stages=stages)
+        assert P.k3_ablate.launches == n0 + 1
+        ref = P.k3_ablate_plain(variant, u, v, *rows)
+        torch.cuda.synchronize()
+        assert set(got) == set(ref), variant
+        for k in got:
+            what = f"{variant}:{team}:{stages} {k}"
+            if k.startswith("walk"):
+                assert torch.equal(got[k], ref[k]), what
+            elif k == "e_out":
+                torch.testing.assert_close(got[k], ref[k], rtol=0,
+                                           atol=0 if bf16 else 1e-5,
+                                           msg=what)
+            else:
+                torch.testing.assert_close(got[k].float(), ref[k].float(),
+                                           **sum_tol, msg=what)
+
+
+def test_k3_ablate_refuses(graph, cuda):
+    from gnnome_tpu_torch.probes import k3_ablate as P
+
+    rows = P.inputs(graph.n_nodes, graph.n_edges, 64, torch.float32, cuda)
+    u, v, v_csr, u_csr = graph.roles(False)
+    with pytest.raises(ValueError, match="not built"):
+        P.k3_ablate("walk_only", u, v, v_csr, u_csr, *rows, team=8)
+    with pytest.raises(ValueError, match="window partials"):
+        P.k3_ablate("per_tile", u, v, v_csr, u_csr, *rows)
+    odd = P.inputs(graph.n_nodes, graph.n_edges, 18, torch.float32, cuda)
+    with pytest.raises(ValueError, match="vector path"):
+        P.k3_ablate("full", u, v, v_csr, u_csr, *odd, team=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", list(range(1, 13)))
+def test_stream_sum_vs_plain(cuda, k, dtype):
+    from gnnome_tpu_torch.probes import dma_probe
+
+    T, ET, d = 96, 512, 64
+    xs = dma_probe.inputs(k, T * ET, d, dtype, cuda, seed=k)
+    n0 = dma_probe.stream_sum.launches
+    got = dma_probe.chain(dma_probe.stream_sum, xs, T, ET, 3)
+    assert dma_probe.stream_sum.launches == n0 + 3
+    ref = dma_probe.chain(lambda ins, *_: dma_probe.stream_sum_plain(ins),
+                          xs, T, ET, 3)
+    assert got.dtype == dtype and torch.equal(got, ref)
+    with pytest.raises(ValueError, match="16-byte"):
+        dma_probe.stream_sum([x[:T, :3].contiguous() for x in xs], T, 1)
