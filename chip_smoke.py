@@ -149,7 +149,14 @@ seconds since the script started):
    and 128 in float32 and bf16, and ``dma_probe``'s K sweep (K = 1-12 at T = 768, ET = 2048) and
    grid sweep (K = 4, T x ET constant) in bf16 and float32, 20 chained
    calls: ms, GB/s, microseconds per block and per block input, and the
-   best GB/s against the nominal 3.35 TB/s.
+   best GB/s against the nominal 3.35 TB/s.  Then the Mosaic repro probe
+   (``probes/mosaic_repro.py``, ``csrc/probes/mosaic_ops.cu``: row stack,
+   row gather, segment sum, small product) through its entry
+   ``run_cases`` with the probe counters from 0: every case of the five
+   ``scripts/mosaic_f32_repro*.py`` (42 with the dtypes) ``PASS`` against
+   its plain chain and repeated bit for bit, each kernel launched, the
+   rows under ``mosaic`` of the ``probes`` line; and the four kernels
+   alone at the scripts' P3 shapes in float32 and bf16.
 13. ``halo``: halo-exchange graph parallelism (``compute.mesh > 1``,
    ``gnnome_tpu_torch/parallel/``) with P ranks sharing the card over gloo,
    every message staged through pinned host memory.  The single-device
@@ -205,9 +212,16 @@ bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
 run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
 launches from the bf16 overfit run of phase 12); two rows for the probes'
 kernels, ``k3_ablate`` (``full`` on the bench graph, d = 64, bf16, as the
-JAX probe runs) and ``stream_sum`` (T = 768, ET = 2048, K = 4, bf16),
-whose ``launches`` count those made on the paths after phase 12b (none:
-they lie on no path); the ``nvidia-smi`` line, and the last line
+JAX probe runs) and ``stream_sum`` (T = 768, ET = 2048, K = 4, bf16);
+four rows for the Mosaic repro probe's kernels, ``row_stack``,
+``row_gather``, ``segment_sum`` and ``small_matmul``, timed at P3's
+shapes (float32, and a ``bfloat16`` entry), each ``replaces`` the
+script call sites of the cases whose chains call it.  Every probe row's
+``launches`` counts the probe's own run (k3_ablate's and dma_probe's
+sweeps, the Mosaic probe's run of every case), and its
+``launches_by_path`` holds that run and those made on the system paths
+after phase 12b (none: the probes lie on no path); the
+``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero at once.
 """
@@ -1115,6 +1129,48 @@ def stream_sum_checks(dev, seed: int) -> float:
     return worst
 
 
+# the Mosaic repro probe (probes/mosaic_repro.py): every case of CASES
+# (the five scripts, at their shapes, in both dtypes where a script runs
+# both) PASS against its plain chain on the card (stacks and gathers
+# exact; segment sums within 1e-6 x the summed magnitudes, products within
+# 1e-5 x sum |a||b|, bf16 also one bf16 spacing; case 6 at K3's
+# tolerances) and a second chain bit for bit the first; the four kernels
+# timed at P3's shapes in float32 and bf16; each chain and kernel over
+# MOSAIC_REPS calls queued behind a sleep kernel, median of 5
+MOSAIC_REPS = 20
+
+
+def mosaic_checks(dev, seed: int) -> dict:
+    """The Mosaic repro probe through its entry (``run_cases``, what
+    ``python -m gnnome_tpu_torch.probes.mosaic_repro`` runs) with the probe
+    counters from 0: every case PASS and each of the four kernels launched;
+    then the four kernels alone at P3's shapes in float32 and bf16."""
+    import torch
+
+    from gnnome_tpu_torch import probes
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    probes.reset_launch_counts()
+    t0 = time.perf_counter()
+    cases = M.run_cases(dev, seed, reps=MOSAIC_REPS)
+    run_s = time.perf_counter() - t0
+    launches = {k: probes.launch_counts()[k] for k in M.OPS}
+    bad = [(r["case"], r["status"], r.get("error")) for r in cases
+           if r["status"] != "PASS"]
+    check(not bad, f"mosaic repro cases PASS on the card: {bad}")
+    check(len(cases) == len(M.CASES) == 42, "every mosaic repro case ran")
+    check(all(launches.values()), f"each mosaic kernel launched by the "
+                                  f"probe's run: {launches}")
+    ops = {str(dt).split(".")[1]: M.op_times(dev, dt, seed, MOSAIC_REPS)
+           for dt in (torch.float32, torch.bfloat16)}
+    check(all(r["status"] == "PASS" for rs in ops.values()
+              for r in rs.values()), "the four mosaic kernels PASS alone")
+    check(all(r.get("library_ms") for rs in ops.values()
+              for r in rs.values()), "each mosaic kernel has a library call")
+    return {"cases": cases, "launches": launches, "ops": ops,
+            "run_s": run_s}
+
+
 def phase_probes(seed: int, dev) -> dict:
     """The card probes (``gnnome_tpu_torch/probes``): the probe library
     built, every K3 variant and stream_sum checked, then K3's cost split
@@ -1129,7 +1185,9 @@ def phase_probes(seed: int, dev) -> dict:
     from gnnome_tpu_torch.graphs.synthetic import random_bench_graph
     from gnnome_tpu_torch.ops import DeviceGraph
     from gnnome_tpu_torch.ops import kernels as K
-    from gnnome_tpu_torch.probes import build_probes, dma_probe, time_ms
+    from gnnome_tpu_torch.probes import (build_probes, dma_probe,
+                                         launch_counts, reset_launch_counts,
+                                         time_ms)
     from gnnome_tpu_torch.probes import k3_ablate as P
 
     t0 = time.perf_counter()
@@ -1141,10 +1199,14 @@ def phase_probes(seed: int, dev) -> dict:
     k3_err = k3_variant_checks(golden, dev, seed)
     dma_err = stream_sum_checks(dev, seed)
     t_checks = time.perf_counter() - t0 - build_s
+    mosaic = mosaic_checks(dev, seed)
     src, dst = random_bench_graph(PROBE_BENCH["num_nodes"],
                                   PROBE_BENCH["avg_degree"],
                                   seed=PROBE_BENCH["seed"])
     bench = DeviceGraph.build(src, dst, PROBE_BENCH["num_nodes"], dev)
+    # the two probes' own runs (k3_ablate's and dma_probe's sweeps, what
+    # their entries run), counted from 0
+    reset_launch_counts()
     split = {}
     for gname, g in (("golden", golden), ("bench", bench)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1155,6 +1217,9 @@ def phase_probes(seed: int, dev) -> dict:
     dma = {str(dt).split(".")[1]: dma_probe.sweep(dev, dt, PROBE_DMA_REPS,
                                                   seed=seed)
            for dt in (torch.bfloat16, torch.float32)}
+    sweeps = launch_counts()
+    check(sweeps["k3_ablate"] > 0 and sweeps["stream_sum"] > 0,
+          f"the sweeps launched k3_ablate and stream_sum: {sweeps}")
     # the kernels line's rows: the JAX probes' own configurations (K3 on
     # the bench graph at d = 64 in bf16, full at K3's team size and depth;
     # stream_sum at T = 768, ET = 2048, K = 4 in bf16), with the plain
@@ -1179,25 +1244,35 @@ def phase_probes(seed: int, dev) -> dict:
                  "bench": {"nodes": bench.n_nodes, "edges": bench.n_edges}},
          k3_max_abs_diff=k3_err, stream_sum_max_abs_diff=dma_err,
          k3_split=split, dma=dma, stream_best_gb_per_s=best,
+         mosaic=mosaic,
          stream_best_share_of_nominal={
              dt: g * 1e9 / HBM_BYTES_PER_S for dt, g in best.items()},
          tolerance={"edges": EDGE_ATOL, "bf16_edges": "one bf16 spacing",
                     "sums_atol": SUM_ATOL, "sums_rtol": SUM_RTOL,
                     "bf16_sums_rtol": SUM_RTOL + BF16_SPACING,
                     "walk_words": "exact", "stream_sum": "exact",
-                    "full_vs_k3": "exact"})
+                    "full_vs_k3": "exact",
+                    "mosaic_stack_gather": "exact",
+                    "mosaic_sum_rtol_of_magnitudes": "1e-6",
+                    "mosaic_product_rtol_of_magnitudes": "1e-5",
+                    "mosaic_bf16": "also one bf16 spacing",
+                    "mosaic_case6": "K3's (e_out 1e-5; sums 1e-4 + 1e-5 "
+                                    "|x|), a second K3 bit for bit"})
     return {"k3_ablate": {"ms": full["ms"], "plain_ms": k3_plain,
                           "bound_ms": full["bound_ms"],
                           "bound_by": full["bound_by"],
                           "max_abs_err": max(k3_err.values()),
                           "width": 64, "dtype": "bfloat16",
-                          "graph": "bench"},
+                          "graph": "bench",
+                          "launches": sweeps["k3_ablate"]},
             "stream_sum": {"ms": at["ms"], "plain_ms": dma_plain,
                            "bound_ms": at["bound_ms"],
                            "bound_by": at["bound_by"],
                            "max_abs_err": dma_err, "width": 64,
                            "dtype": "bfloat16",
-                           "shape": {"T": 768, "ET": 2048, "K": 4}}}
+                           "shape": {"T": 768, "ET": 2048, "K": 4},
+                           "launches": sweeps["stream_sum"]},
+            "mosaic": mosaic}
 
 
 def relabelled(graph, seed: int, dev):
@@ -3293,6 +3368,7 @@ def main(argv=None) -> int:
     kb = phase_kernels_bf16(args.seed, dev)
     pr = phase_probes(args.seed, dev)
     from gnnome_tpu_torch import probes
+    from gnnome_tpu_torch.probes import mosaic_repro as M
 
     probes.reset_launch_counts()
     paths = {"infer": phase_infer()}
@@ -3422,21 +3498,52 @@ def main(argv=None) -> int:
     probe_launches = probes.launch_counts()
     check(not any(probe_launches.values()),
           f"no probe kernel on a path: {probe_launches}")
-    for name, src, replaces in (
-            ("k3_ablate", "probes/k3_ablate.cu", "scripts/k3_ablate.py:169"),
+    # every probe row alike: ``launches`` from the probe's own run, and
+    # under ``launches_by_path`` that run and the system paths (none)
+    def probe_launches_of(name, probe, n) -> dict:
+        return {"launches": n, "launches_by_path": {
+            probe: n, "system_paths": probe_launches[name]}}
+
+    for name, src, replaces, probe in (
+            ("k3_ablate", "probes/k3_ablate.cu", "scripts/k3_ablate.py:169",
+             "k3_ablate"),
             ("stream_sum", "probes/stream_sum.cu",
-             "scripts/dma_probe.py:35")):
+             "scripts/dma_probe.py:35", "dma_probe")):
         t = pr[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"gnnome_tpu_torch/csrc/{src}",
                      "replaces": replaces,
-                     "launches": probe_launches[name],
+                     **probe_launches_of(name, probe, t["launches"]),
                      "max_abs_err": t["max_abs_err"], "width": t["width"],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": None, "dtypes": ["float32", "bfloat16"],
                      "timed_at": {k: t[k] for k in ("dtype", "graph", "shape")
                                   if k in t}})
+    # the Mosaic repro probe's kernels: launches from the probe's own run
+    # (every case through run_cases); times at P3's shapes in float32 (and
+    # bf16); the call sites those of the cases whose chains call the kernel
+    mo = pr["mosaic"]
+
+    def mosaic_row(t) -> dict:
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "max_abs_err": t["max_abs_diff"], "shapes": t["shapes"]}
+
+    for name in ("row_stack", "row_gather", "segment_sum", "small_matmul"):
+        t32, t16 = mo["ops"]["float32"][name], mo["ops"]["bfloat16"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "gnnome_tpu_torch/csrc/probes/mosaic_ops.cu",
+                     "replaces": M.call_sites(mo["cases"], name),
+                     **probe_launches_of(name, "mosaic_repro",
+                                         mo["launches"][name]),
+                     **mosaic_row(t32),
+                     "max_abs_err": max(t32["max_abs_diff"],
+                                        t16["max_abs_diff"]),
+                     "dtypes": ["float32", "bfloat16"],
+                     "bfloat16": mosaic_row(t16),
+                     "timed_at": "P3's shapes (scripts/mosaic_f32_repro.py)"})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,14 @@ scripts, each a hand-written CUDA kernel beside its plain PyTorch version.
 - ``probes.dma_probe`` (``scripts/dma_probe.py``): a streaming sum of K row
   blocks on a grid of T blocks, the card's stream ceiling
   (``csrc/probes/stream_sum.cu``).
+- ``probes.mosaic_repro`` (``scripts/mosaic_f32_repro*.py``): every case of
+  the five Mosaic repro scripts as a chain of four kernels, a row stack, a
+  row gather, a segment sum and a small product
+  (``csrc/probes/mosaic_ops.cu``).
 
-Run them with ``python -m gnnome_tpu_torch.probes.k3_ablate`` and ``python
--m gnnome_tpu_torch.probes.dma_probe`` (``--device cpu`` runs the plain
+Run them with ``python -m gnnome_tpu_torch.probes.k3_ablate``, ``python
+-m gnnome_tpu_torch.probes.dma_probe`` and ``python -m
+gnnome_tpu_torch.probes.mosaic_repro`` (``--device cpu`` runs the plain
 versions).  Their kernels lie on no path of the system, so they are built
 into a library of their own, ``build/libgnnome_probes.so``, at a probe's
 first CUDA call (resource report ``build/nvcc_probes.log``).  As for the
@@ -27,13 +32,16 @@ import time
 
 from ..ops import kernels as K
 
-SOURCES = ("probes/k3_ablate.cu", "probes/stream_sum.cu")
+SOURCES = ("probes/k3_ablate.cu", "probes/stream_sum.cu",
+           "probes/mosaic_ops.cu")
 LIB_PATH = os.path.join(K.BUILD_DIR, "libgnnome_probes.so")
 
-# H100 SXM data sheet: HBM3 bandwidth and the float32 (non-tensor-core)
-# peak, the rates behind every bound of PERF.md
+# H100 SXM data sheet: HBM3 bandwidth, the float32 (non-tensor-core) peak
+# and the dense bf16 tensor-core peak, the rates behind every bound of
+# PERF.md
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 _lock = threading.Lock()
 _lib = None
@@ -63,6 +71,24 @@ def library():
             lib.gn_stream_sum.restype = I
             lib.gn_stream_sum.argtypes = [
                 I, P, P, I, L, I, P]         # k, inputs, out, n_blocks, words, bf16, stream
+            lib.gn_row_stack.restype = I
+            lib.gn_row_stack.argtypes = [
+                I, I, I, I,                  # h, D, inverse, sigmoid
+                P, L, P, L,                  # lo, ld_lo, hi, ld_hi
+                P, L,                        # out, ld_out
+                I, P]                        # bf16, stream
+            lib.gn_row_gather.restype = I
+            lib.gn_row_gather.argtypes = [
+                I, I, I, P, P, L,            # n, rows, W, idx, table, ld_t
+                P, I, P]                     # out, bf16, stream
+            lib.gn_segment_sum.restype = I
+            lib.gn_segment_sum.argtypes = [
+                I, I, I, P, P, L,            # n, n_out, W, idx, pay, ld_p
+                P, L, I, I, P]               # out, ld_o, dup, bf16, stream
+            lib.gn_small_matmul.restype = I
+            lib.gn_small_matmul.argtypes = [
+                I, I, I, P, L, P, L,         # M, K, N, a, lda, b, ldb
+                P, L, I, P]                  # out, ldo, bf16, stream
             lib.gn_probes_error_string.restype = ctypes.c_char_p
             lib.gn_probes_error_string.argtypes = [I]
             _lib = lib
@@ -75,11 +101,13 @@ def raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = F32_FLOPS_PER_S):
     """Least time on the card in ms: the larger of bytes over the memory
-    rate and float32 operations over their peak; and which of the two."""
+    rate and the operations over their peak (float32 unless
+    ``flops_per_s`` says otherwise); and which of the two."""
     t_b = nbytes / HBM_BYTES_PER_S
-    t_f = flops / F32_FLOPS_PER_S
+    t_f = flops / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -143,13 +171,16 @@ def device_label(device) -> dict:
 
 def launch_counts() -> dict:
     """Each probe wrapper's launches since the last reset."""
-    from . import dma_probe, k3_ablate
+    from . import dma_probe, k3_ablate, mosaic_repro
 
     return {"k3_ablate": k3_ablate.k3_ablate.launches,
-            "stream_sum": dma_probe.stream_sum.launches}
+            "stream_sum": dma_probe.stream_sum.launches,
+            **{name: fn.launches for name, fn in mosaic_repro.OPS.items()}}
 
 
 def reset_launch_counts() -> None:
-    from . import dma_probe, k3_ablate
+    from . import dma_probe, k3_ablate, mosaic_repro
 
     k3_ablate.k3_ablate.launches = dma_probe.stream_sum.launches = 0
+    for fn in mosaic_repro.OPS.values():
+        fn.launches = 0

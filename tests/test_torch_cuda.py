@@ -32,8 +32,8 @@ the plain version on CPU copies, where ``index_add_`` adds each node's terms
 in slot order as the kernel does, and so are the one-sided walk's; K1
 repeats the plain version's adds: exact.  The bf16 instantiations of K1,
 K2, K3, K6, K7, K8 and K9 at the end of the file state their own, and so
-do the probes' kernels (``gnnome_tpu_torch/probes``: the K3 variants and
-``stream_sum``) after them.
+do the probes' kernels (``gnnome_tpu_torch/probes``: the K3 variants,
+``stream_sum`` and the Mosaic repro probe's four kernels) after them.
 """
 import pytest
 import torch
@@ -818,3 +818,132 @@ def test_stream_sum_vs_plain(cuda, k, dtype):
     assert got.dtype == dtype and torch.equal(got, ref)
     with pytest.raises(ValueError, match="16-byte"):
         dma_probe.stream_sum([x[:T, :3].contiguous() for x in xs], T, 1)
+
+
+# The Mosaic repro probe's kernels (csrc/probes/mosaic_ops.cu) against their
+# plain versions, float32 and bf16, at the scripts' shapes and odd ones, on
+# row-strided views: row_stack (and its inverse, its output into a zeroed
+# wider buffer) and row_gather exact, out-of-range indices a zero row;
+# row_stack's sigmoid within 1e-6 (float32; expf against torch's exp) or
+# one bf16 spacing; segment_sum bit for bit its plain version on CPU copies
+# (index_add_ adds each row's terms in ascending order there, as the kernel
+# does) and a second launch bit for bit the first, out-of-range terms
+# dropped; small_matmul within 1e-5 x sum |a||b| (float32; another order
+# of the same float32 products), bf16 also one bf16 spacing.  Then every
+# case of CASES passes on the card, and no wrapper launches at zero rows.
+MOSAIC_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _mosaic_randn(shape, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dtype)
+
+
+def _mosaic_index(n, rows, seed):
+    """int32 indices in [-3, rows + 3): repeats and some out of range."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(-3, rows + 3, (n,), generator=gen,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", MOSAIC_DTYPES)
+@pytest.mark.parametrize("h,d", [(256, 64), (37, 5), (1, 130)])
+def test_row_stack_vs_plain(cuda, h, d, dtype):
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    a = _mosaic_randn((h, 2 * d + 3), dtype, h + d)[:, :2 * d]
+    lo, hi = a[:, :d].to(cuda), a[:, d:].to(cuda)
+    n0 = M.row_stack.launches
+    got = M.row_stack(lo, hi)
+    assert M.row_stack.launches == n0 + 1
+    assert torch.equal(got.cpu(), M.row_stack_plain(a[:, :d], a[:, d:]))
+    b = _mosaic_randn((2 * h, d), dtype, 7).to(cuda)
+    assert torch.equal(M.row_stack(b[:h], b[h:], inverse=True),
+                       M.row_stack_plain(b[:h], b[h:], inverse=True))
+    buf = torch.zeros((2 * h, 2 * d), dtype=dtype, device=cuda)
+    M.row_stack(lo, hi, out=buf[:, :d])
+    assert torch.equal(buf[:, :d], got) and not buf[:, d:].any()
+    sig = M.row_stack(lo, hi, sigmoid=True).float()
+    ref = M.row_stack_plain(lo, hi, sigmoid=True).float()
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
+    assert float((sig - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", MOSAIC_DTYPES)
+@pytest.mark.parametrize("n,rows,w", [(512, 256, 128), (7, 3, 130),
+                                      (1000, 40, 1)])
+def test_row_gather_vs_plain(cuda, n, rows, w, dtype):
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    table = _mosaic_randn((rows, w + 2), dtype, n)[:, :w].to(cuda)
+    idx = _mosaic_index(n, rows, w).to(cuda)
+    n0 = M.row_gather.launches
+    got = M.row_gather(table, idx)
+    assert M.row_gather.launches == n0 + 1
+    assert torch.equal(got, M.row_gather_plain(table, idx))
+    bad = (idx < 0) | (idx >= rows)
+    assert bad.any() and not got[bad].any()
+
+
+@pytest.mark.parametrize("dtype", MOSAIC_DTYPES)
+@pytest.mark.parametrize("n,rows,w", [(512, 256, 128), (2500, 40, 200),
+                                      (5, 3, 1)])
+def test_segment_sum_vs_plain(cuda, n, rows, w, dtype):
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    pay = _mosaic_randn((n, w + 1), dtype, n + w)[:, :w].to(cuda)
+    idx = _mosaic_index(n, rows, rows).to(cuda)
+    n0 = M.segment_sum.launches
+    got = M.segment_sum(idx, pay, rows)
+    again = M.segment_sum(idx, pay, rows)
+    assert M.segment_sum.launches == n0 + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert torch.equal(got.cpu(), M.segment_sum_plain(idx.cpu(), pay.cpu(),
+                                                      rows))
+    dup = M.segment_sum(idx, pay, rows, dup=True)
+    assert torch.equal(dup, torch.cat([got, got], 1))
+
+
+@pytest.mark.parametrize("dtype", MOSAIC_DTYPES)
+@pytest.mark.parametrize("m,k,n", [(512, 256, 128), (512, 64, 64),
+                                   (33, 17, 5), (1, 300, 19)])
+def test_small_matmul_vs_plain(cuda, m, k, n, dtype):
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    a = _mosaic_randn((m, k + 4), dtype, m)[:, 2:k + 2].to(cuda)
+    b = _mosaic_randn((k, n), dtype, n).to(cuda)
+    n0 = M.small_matmul.launches
+    got = M.small_matmul(a, b)
+    assert M.small_matmul.launches == n0 + 1
+    ref = M.small_matmul_plain(a, b).float()
+    tol = 1e-5 * M.small_matmul_plain(a.abs(), b.abs()).float()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * torch.maximum(got.float().abs(), ref.abs())
+    assert got.dtype == dtype and bool(((got.float() - ref).abs()
+                                        <= tol).all())
+    assert torch.equal(got, M.small_matmul(a, b))
+
+
+def test_mosaic_cases_pass(cuda):
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    rows = M.run_cases(cuda, seed=5, reps=2)
+    assert [r["status"] for r in rows] == ["PASS"] * len(M.CASES), [
+        (r["case"], r.get("error")) for r in rows if r["status"] != "PASS"]
+    assert all(r["ms"] > 0 and r["bound_ms"] > 0 for r in rows)
+
+
+def test_mosaic_zero_rows_launch_nothing(cuda):
+    from gnnome_tpu_torch.probes import launch_counts
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    a = torch.randn(6, 8, device=cuda)
+    idx = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = launch_counts()
+    assert M.row_stack(a[:0, :4], a[:0, 4:]).shape == (0, 4)
+    assert M.row_gather(a, idx).shape == (0, 8)
+    assert not M.segment_sum(idx, a[:0], 3).any()
+    assert M.small_matmul(a[:0], a.t().contiguous()).shape == (0, 6)
+    assert launch_counts() == before
+    with pytest.raises(TypeError, match="int32"):
+        M.row_gather(a, idx.long())
