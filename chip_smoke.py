@@ -156,7 +156,18 @@ seconds since the script started):
    ``scripts/mosaic_f32_repro*.py`` (42 with the dtypes) ``PASS`` against
    its plain chain and repeated bit for bit, each kernel launched, the
    rows under ``mosaic`` of the ``probes`` line; and the four kernels
-   alone at the scripts' P3 shapes in float32 and bf16.
+   alone at the scripts' P3 shapes in float32 and bf16, where
+   ``small_matmul`` must take its vector instantiation (its route
+   counters, ``small_matmul.routes``); ``small_matmul`` at P3's shape
+   through both instantiations (16-byte rows and views one element in),
+   each against its plain version and bit for bit on repeat.  Then the two
+   redesigned kernels in turns with their one-call library counterparts
+   (kernel, library, library, kernel): ``small_matmul`` at P3's shape
+   against ``torch.matmul`` (float32 with TF32 off, bf16), ``stream_sum``
+   at T = 768, ET = 2048 against ``copy_`` (K = 1) and ``torch.add``
+   (K = 2), both dtypes; and their registers, spills and shared memory
+   from ``build/nvcc_probes.log`` (``resources``, ``turns`` in the
+   ``probes`` line).
 13. ``halo``: halo-exchange graph parallelism (``compute.mesh > 1``,
    ``gnnome_tpu_torch/parallel/``) with P ranks sharing the card over gloo,
    every message staged through pinned host memory.  The single-device
@@ -216,7 +227,10 @@ JAX probe runs) and ``stream_sum`` (T = 768, ET = 2048, K = 4, bf16);
 four rows for the Mosaic repro probe's kernels, ``row_stack``,
 ``row_gather``, ``segment_sum`` and ``small_matmul``, timed at P3's
 shapes (float32, and a ``bfloat16`` entry), each ``replaces`` the
-script call sites of the cases whose chains call it.  Every probe row's
+script call sites of the cases whose chains call it; ``small_matmul``'s
+row also holds its launches by instantiation, both instantiations' checks
+and times, its ``-Xptxas -v`` resources and its times in turns with
+cuBLAS, ``stream_sum``'s its resources and turns.  Every probe row's
 ``launches`` counts the probe's own run (k3_ablate's and dma_probe's
 sweeps, the Mosaic probe's run of every case), and its
 ``launches_by_path`` holds that run and those made on the system paths
@@ -1154,21 +1168,110 @@ def mosaic_checks(dev, seed: int) -> dict:
     t0 = time.perf_counter()
     cases = M.run_cases(dev, seed, reps=MOSAIC_REPS)
     run_s = time.perf_counter() - t0
-    launches = {k: probes.launch_counts()[k] for k in M.OPS}
+    counts = probes.launch_counts()
+    launches = {k: counts[k] for k in M.OPS}
+    routes = {r: counts[f"small_matmul:{r}"] for r in M.MATMUL_ROUTES}
     bad = [(r["case"], r["status"], r.get("error")) for r in cases
            if r["status"] != "PASS"]
     check(not bad, f"mosaic repro cases PASS on the card: {bad}")
     check(len(cases) == len(M.CASES) == 42, "every mosaic repro case ran")
     check(all(launches.values()), f"each mosaic kernel launched by the "
                                   f"probe's run: {launches}")
+    check(sum(routes.values()) == launches["small_matmul"],
+          f"every small_matmul launch counted by its instantiation: "
+          f"{routes}, {launches['small_matmul']}")
+    before = dict(M.small_matmul.routes)
     ops = {str(dt).split(".")[1]: M.op_times(dev, dt, seed, MOSAIC_REPS)
            for dt in (torch.float32, torch.bfloat16)}
+    p3_routes = {r: M.small_matmul.routes[r] - before[r]
+                 for r in M.MATMUL_ROUTES}
+    check(p3_routes["vector"] > 0 and p3_routes["scalar"] == 0,
+          f"P3's shapes take small_matmul's vector instantiation: "
+          f"{p3_routes}")
     check(all(r["status"] == "PASS" for rs in ops.values()
               for r in rs.values()), "the four mosaic kernels PASS alone")
     check(all(r.get("library_ms") for rs in ops.values()
               for r in rs.values()), "each mosaic kernel has a library call")
-    return {"cases": cases, "launches": launches, "ops": ops,
-            "run_s": run_s}
+    return {"cases": cases, "launches": launches, "routes": routes,
+            "p3_routes": p3_routes, "ops": ops, "run_s": run_s,
+            "instantiations": matmul_instantiation_checks(dev, seed)}
+
+
+def matmul_instantiation_checks(dev, seed: int) -> dict:
+    """small_matmul at P3's shape ([512, 256] @ [256, 128]) through both
+    instantiations, float32 and bf16: 16-byte rows (a column slice of a
+    wider buffer: the vector one) and views one element in (the scalar
+    one), each within 1e-5 x sum |a||b| of the plain version (bf16 also
+    one bf16 spacing), bit for bit on repeat, counted under its own
+    route, and timed."""
+    import torch
+
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+    from gnnome_tpu_torch.probes import time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bufs = [torch.randn(r, c + 8, generator=gen, device=dev).to(dtype)
+                for r, c in ((512, 256), (256, 128))]
+        for route, start in (("vector", 0), ("scalar", 1)):
+            a, b = (x[:, start:start + x.shape[1] - 8] for x in bufs)
+            tag = f"small_matmul {route} {dtype}"
+            check(M.matmul_route(a, b) == route, f"{tag}: the C entry's "
+                                                 "choice")
+            before = dict(M.small_matmul.routes)
+            got, again = M.small_matmul(a, b), M.small_matmul(a, b)
+            check(M.small_matmul.routes[route] == before[route] + 2,
+                  f"{tag}: counted under its route")
+            ref = M.small_matmul_plain(a, b).float()
+            tol = 1e-5 * M.small_matmul_plain(a.abs(), b.abs()).float()
+            if dtype == torch.bfloat16:
+                tol = tol + M.BF16_SPACING * torch.maximum(got.float().abs(),
+                                                           ref.abs())
+            err = (got.float() - ref).abs()
+            check(bool((err <= tol).all()), f"{tag} against its plain "
+                                            "version")
+            check(torch.equal(got, again), f"{tag} bit for bit on repeat")
+            out[f"{route} {str(dtype).split('.')[1]}"] = {
+                "max_abs_diff": float(err.max()),
+                "ms": time_ms(lambda: M.small_matmul(a, b), dev,
+                              MOSAIC_REPS)}
+    return out
+
+
+# the redesigned kernels beside their one-call library counterparts, in
+# turns (kernel, library, library, kernel): small_matmul at P3's shape
+# against torch.matmul (float32 with TF32 off, and bf16), stream_sum at
+# T = 768, ET = 2048, d = 64 against copy_ (K = 1) and torch.add (K = 2),
+# in float32 and bf16
+def probe_turns(dev, seed: int) -> dict:
+    import torch
+
+    from gnnome_tpu_torch.probes import dma_probe, in_turns
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        a = torch.randn(512, 256, generator=gen, device=dev).to(dtype)
+        b = torch.randn(256, 128, generator=gen, device=dev).to(dtype)
+        res = torch.empty(512, 128, dtype=dtype, device=dev)
+        with M.no_tf32():
+            out[f"small_matmul {tag}"] = in_turns(
+                lambda: M.small_matmul(a, b),
+                lambda: torch.matmul(a, b, out=res), dev, MOSAIC_REPS)
+        for k in (1, 2):
+            xs = dma_probe.inputs(k, 768 * 2048, 64, dtype, dev, seed)
+            t = in_turns(lambda: dma_probe.stream_sum(xs, 768, 2048),
+                         dma_probe.library_call(xs), dev, PROBE_DMA_REPS)
+            nbytes = dma_probe.cost(k, 768 * 2048, 64,
+                                    xs[0].element_size())[0]
+            t["gb_per_s"] = {w: [nbytes / ms / 1e6 for ms in t[w]]
+                             for w in ("kernel_ms", "library_ms")}
+            out[f"stream_sum {tag} K={k}"] = t
+            del xs
+    return out
 
 
 def phase_probes(seed: int, dev) -> dict:
@@ -1186,20 +1289,37 @@ def phase_probes(seed: int, dev) -> dict:
     from gnnome_tpu_torch.ops import DeviceGraph
     from gnnome_tpu_torch.ops import kernels as K
     from gnnome_tpu_torch.probes import (build_probes, dma_probe,
-                                         launch_counts, reset_launch_counts,
-                                         time_ms)
+                                         launch_counts, library,
+                                         ptxas_resources,
+                                         reset_launch_counts, time_ms)
     from gnnome_tpu_torch.probes import k3_ablate as P
 
     t0 = time.perf_counter()
     build_probes(force=True)
     build_s = time.perf_counter() - t0
     with open(os.path.join(K.BUILD_DIR, "nvcc_probes.log")) as f:
-        ptxas = [ln.strip() for ln in f if "Used" in ln or "spill" in ln]
+        log = f.read()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "Used" in ln or "spill" in ln]
+    # the redesigned kernels' registers, spills and shared memory: the
+    # product's four instantiations, the stream sum's 24 (K x dtype); the
+    # product's ring is dynamic shared memory, which ptxas does not see
+    resources = {n: ptxas_resources(log, (n,))
+                 for n in ("small_matmul", "stream_sum")}
+    check(len(resources["small_matmul"]) == 4
+          and len(resources["stream_sum"]) == 24
+          and all(r["registers"] for rs in resources.values() for r in rs),
+          f"ptxas reports every instantiation: {resources}")
+    lib = library()
+    resources["small_matmul_dynamic_smem"] = {
+        "float32": lib.gn_small_matmul_smem(0),
+        "bfloat16": lib.gn_small_matmul_smem(1)}
     golden = DeviceGraph.from_graph(AssemblyGraph.load(GOLDEN), dev)
     k3_err = k3_variant_checks(golden, dev, seed)
     dma_err = stream_sum_checks(dev, seed)
     t_checks = time.perf_counter() - t0 - build_s
     mosaic = mosaic_checks(dev, seed)
+    turns = probe_turns(dev, seed)
     src, dst = random_bench_graph(PROBE_BENCH["num_nodes"],
                                   PROBE_BENCH["avg_degree"],
                                   seed=PROBE_BENCH["seed"])
@@ -1240,6 +1360,7 @@ def phase_probes(seed: int, dev) -> dict:
     del xs
     best = {dt: max(r["gb_per_s"] for r in rs) for dt, rs in dma.items()}
     emit("probes", build_s=build_s, checks_s=t_checks, ptxas=ptxas,
+         resources=resources, turns=turns,
          graphs={"golden": {"nodes": golden.n_nodes, "edges": golden.n_edges},
                  "bench": {"nodes": bench.n_nodes, "edges": bench.n_edges}},
          k3_max_abs_diff=k3_err, stream_sum_max_abs_diff=dma_err,
@@ -1271,8 +1392,11 @@ def phase_probes(seed: int, dev) -> dict:
                            "max_abs_err": dma_err, "width": 64,
                            "dtype": "bfloat16",
                            "shape": {"T": 768, "ET": 2048, "K": 4},
-                           "launches": sweeps["stream_sum"]},
-            "mosaic": mosaic}
+                           "launches": sweeps["stream_sum"],
+                           "resources": resources["stream_sum"],
+                           "turns": {k: v for k, v in turns.items()
+                                     if k.startswith("stream_sum")}},
+            "mosaic": mosaic, "resources": resources, "turns": turns}
 
 
 def relabelled(graph, seed: int, dev):
@@ -3519,7 +3643,8 @@ def main(argv=None) -> int:
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": None, "dtypes": ["float32", "bfloat16"],
                      "timed_at": {k: t[k] for k in ("dtype", "graph", "shape")
-                                  if k in t}})
+                                  if k in t},
+                     **{k: t[k] for k in ("resources", "turns") if k in t}})
     # the Mosaic repro probe's kernels: launches from the probe's own run
     # (every case through run_cases); times at P3's shapes in float32 (and
     # bf16); the call sites those of the cases whose chains call the kernel
@@ -3543,7 +3668,15 @@ def main(argv=None) -> int:
                                         t16["max_abs_diff"]),
                      "dtypes": ["float32", "bfloat16"],
                      "bfloat16": mosaic_row(t16),
-                     "timed_at": "P3's shapes (scripts/mosaic_f32_repro.py)"})
+                     "timed_at": "P3's shapes (scripts/mosaic_f32_repro.py)",
+                     **({"routes": mo["routes"], "p3_routes": mo["p3_routes"],
+                         "instantiations": mo["instantiations"],
+                         "resources": pr["resources"][name],
+                         "dynamic_smem": pr["resources"][
+                             "small_matmul_dynamic_smem"],
+                         "turns": {k: v for k, v in pr["turns"].items()
+                                   if k.startswith(name)}}
+                        if name == "small_matmul" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,12 +20,14 @@ into a library of their own, ``build/libgnnome_probes.so``, at a probe's
 first CUDA call (resource report ``build/nvcc_probes.log``).  As for the
 kernels of ``ops/kernels.py``, a wrapper takes its plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises, and
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches`` (``small_matmul`` also by
+instantiation, in ``small_matmul.routes``).
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import statistics
 import threading
 import time
@@ -89,6 +91,11 @@ def library():
             lib.gn_small_matmul.argtypes = [
                 I, I, I, P, L, P, L,         # M, K, N, a, lda, b, ldb
                 P, L, I, P]                  # out, ldo, bf16, stream
+            lib.gn_small_matmul_smem.restype = I
+            lib.gn_small_matmul_smem.argtypes = [I]      # bf16
+            lib.gn_small_matmul_vector.restype = I
+            lib.gn_small_matmul_vector.argtypes = [
+                P, L, P, L, I]               # a, lda, b, ldb, bf16
             lib.gn_probes_error_string.restype = ctypes.c_char_p
             lib.gn_probes_error_string.argtypes = [I]
             _lib = lib
@@ -149,6 +156,48 @@ def time_ms(fn, device, calls: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def in_turns(kernel, library, device, calls: int) -> dict:
+    """``kernel`` and ``library`` timed by ``time_ms`` in turns, kernel,
+    library, library, kernel, so that a drift of the card's clock over the
+    four reads falls on both alike: the two times of each, in that order."""
+    k0, l0, l1, k1 = (time_ms(fn, device, calls)
+                      for fn in (kernel, library, library, kernel))
+    return {"kernel_ms": [k0, k1], "library_ms": [l0, l1]}
+
+
+def ptxas_resources(log: str, names) -> list:
+    """What ``nvcc -Xptxas -v`` reports for each entry function whose
+    mangled name holds one of ``names``: the name, registers, stack frame,
+    spill stores and loads and static shared memory (bytes), in the log's
+    order."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = None
+            if any(n in m.group(1) for n in names):
+                cur = {"function": m.group(1), "registers": None,
+                       "stack_bytes": 0, "spill_stores": 0,
+                       "spill_loads": 0, "smem_bytes": 0}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+            cur = None
+    return out
+
+
 def timed(row: dict, device, ms: float, **rates) -> dict:
     """``row`` with a time and its rates, named by where they were taken:
     ``ms`` and the rates on the card (CUDA events), ``cpu_ms`` and
@@ -170,12 +219,16 @@ def device_label(device) -> dict:
 
 
 def launch_counts() -> dict:
-    """Each probe wrapper's launches since the last reset."""
+    """Each probe wrapper's launches since the last reset, and
+    ``small_matmul``'s by instantiation (``small_matmul:vector``,
+    ``small_matmul:scalar``)."""
     from . import dma_probe, k3_ablate, mosaic_repro
 
+    mm = mosaic_repro.small_matmul
     return {"k3_ablate": k3_ablate.k3_ablate.launches,
             "stream_sum": dma_probe.stream_sum.launches,
-            **{name: fn.launches for name, fn in mosaic_repro.OPS.items()}}
+            **{name: fn.launches for name, fn in mosaic_repro.OPS.items()},
+            **{f"small_matmul:{r}": n for r, n in mm.routes.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -184,3 +237,5 @@ def reset_launch_counts() -> None:
     k3_ablate.k3_ablate.launches = dma_probe.stream_sum.launches = 0
     for fn in mosaic_repro.OPS.values():
         fn.launches = 0
+    mosaic_repro.small_matmul.routes = dict.fromkeys(
+        mosaic_repro.MATMUL_ROUTES, 0)

@@ -6,13 +6,16 @@
         [--seed S]
 
 ``stream_sum(xs, T, ET)`` (``csrc/probes/stream_sum.cu``) writes ``out =
-xs[0] + xs[1] + ... + xs[K-1]`` over rows ``[T * ET, d]`` on a grid of
-exactly T blocks of ET rows each, the JAX kernel's ``BlockSpec((ET, d),
-lambda t: (t, 0))`` on a ``(T,)`` grid, adding left to right (in bf16 each
-add rounded to bf16).  As in the JAX probe, ``reps`` calls are chained,
-the output fed back as input 0 (the JAX ``fori_loop``), over the K sweep
-(K = 1, 2, 4, 8, 12 at T = 768, ET = 2048) and the grid sweep at constant
-bytes (K = 4, (T, ET) from (192, 8192) to (3072, 512)).  Each line is one
+xs[0] + xs[1] + ... + xs[K-1]`` over rows ``[T * ET, d]`` in T logical
+blocks of ET rows each, the JAX kernel's ``BlockSpec((ET, d), lambda t: (t,
+0))`` on a ``(T,)`` grid, adding left to right (in bf16 each add rounded to
+bf16).  On the card each block is cut into tiles of 1,024 16-byte words,
+one CTA a tile and one word of every input a thread, launched in address
+order, so a small T fills the card as a large one does.  As in the JAX
+probe, ``reps`` calls are chained, the output fed back as input 0 (the
+JAX ``fori_loop``), over the K sweep (K = 1, 2, 4, 8, 12 at T = 768, ET =
+2048) and the grid sweep at constant bytes (K = 4, (T, ET) from (192,
+8192) to (3072, 512)).  Each line is one
 JSON object: T, ET, K, ms per call (CUDA events around the chain queued
 behind a sleep kernel, the device's time alone, median of 5), GB/s of the
 (K + 1) blocks moved, microseconds per block and per block input, the
@@ -65,10 +68,10 @@ def _check_inputs(xs, T: int, ET: int):
 
 def stream_sum(xs, T: int, ET: int):
     """The streaming sum of ``xs`` (K <= 12 tensors [T * ET, d] of one
-    dtype, float32 or bfloat16) on a grid of T blocks of ET rows: returns
-    what ``stream_sum_plain`` returns.  On the card each block's ET * d
-    elements must be whole 16-byte words, and every tensor 16-byte
-    aligned."""
+    dtype, float32 or bfloat16) in T logical blocks of ET rows: returns
+    what ``stream_sum_plain`` returns, bit for bit.  On the card each
+    block's ET * d elements must be whole 16-byte words, and every tensor
+    16-byte aligned; the kernel masks the last tile of each block."""
     dt = _check_inputs(xs, T, ET)
     if xs[0].device.type == "cpu":
         return stream_sum_plain(xs)

@@ -21,10 +21,10 @@ PyTorch version:
   terms in ascending order in float32, rounded once to ``pay``'s dtype;
   out-of-range indices dropped; ``dup`` writes ``[s | s]``.
 - ``small_matmul(a, b)``: ``a @ b`` with float32 FMA on CUDA cores, no
-  TF32 (the float32 HIGHEST product); bf16 operands accumulate in float32
-  (the bf16 DEFAULT product).  The scripts' kF, float32 at DEFAULT
-  precision, is a TPU pass count: the port runs every float32 product
-  with TF32 off, so kF computes kD's function.
+  TF32 (the float32 HIGHEST product); bf16 operands on the tensor cores,
+  accumulated in float32 (the bf16 DEFAULT product).  The scripts' kF,
+  float32 at DEFAULT precision, is a TPU pass count: the port runs every
+  float32 product with TF32 off, so kF computes kD's function.
 
 ``CASES`` holds every case of the five scripts under the script's own
 letter or number, the dtype a suffix (``1_float32`` to ``6_float32``,
@@ -250,7 +250,12 @@ def small_matmul_plain(a, b):
 def small_matmul(a, b):
     """``small_matmul_plain`` by ``gn_small_matmul``: ``a`` [M, K], ``b``
     [K, N] of one dtype (float32 or bfloat16, any row strides); returns a
-    contiguous [M, N]."""
+    contiguous [M, N].  float32 on CUDA cores (register tiles of 4 x 4
+    outputs, no TF32), bf16 on the tensor cores (``mma.sync``); each
+    output's sum in a fixed order.  The C entry launches the vector
+    instantiation where ``a``, ``b`` and their row strides lie on 16 bytes,
+    else the scalar one; ``small_matmul.routes`` counts which ran
+    (``matmul_route``)."""
     dt = K._edge_dtype("small_matmul", a)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"small_matmul: shapes {tuple(a.shape)} @ "
@@ -268,18 +273,34 @@ def small_matmul(a, b):
         return out
     if k == 0:
         return out.zero_()
+    bf16 = int(dt == torch.bfloat16)
     with torch.cuda.device(dev):
         rc = library().gn_small_matmul(
             m, k, n, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-            out.data_ptr(), out.stride(0), int(dt == torch.bfloat16),
-            _stream(dev))
+            out.data_ptr(), out.stride(0), bf16, _stream(dev))
     raise_on(rc, "small_matmul")
     small_matmul.launches += 1
+    small_matmul.routes[matmul_route(a, b)] += 1
     return out
+
+
+MATMUL_ROUTES = ("vector", "scalar")
+
+
+def matmul_route(a, b) -> str:
+    """The instantiation ``gn_small_matmul`` takes for CUDA tensors ``a``,
+    ``b``: ``vector`` (16-byte chunks by cp.async; both tensors and their
+    row strides on 16 bytes) or ``scalar`` (element loads), as the C entry
+    decides it (``gn_small_matmul_vector``)."""
+    vec = library().gn_small_matmul_vector(
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        int(a.dtype == torch.bfloat16))
+    return MATMUL_ROUTES[0 if vec else 1]
 
 
 for _fn in (row_stack, row_gather, segment_sum, small_matmul):
     _fn.launches = 0
+small_matmul.routes = dict.fromkeys(MATMUL_ROUTES, 0)
 OPS = {fn.__name__: fn for fn in (row_stack, row_gather, segment_sum,
                                   small_matmul)}
 

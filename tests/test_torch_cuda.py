@@ -947,3 +947,68 @@ def test_mosaic_zero_rows_launch_nothing(cuda):
     assert launch_counts() == before
     with pytest.raises(TypeError, match="int32"):
         M.row_gather(a, idx.long())
+
+
+# small_matmul's two instantiations (csrc/probes/mosaic_ops.cu): operands
+# whose base and row strides lie on 16 bytes take the vector one (cp.async
+# chunks, zero-filled past the edge), an offset view the scalar one (element
+# loads); each within 1e-5 x sum |a||b| of the plain version (bf16 also one
+# bf16 spacing) and bit for bit on repeat, at shapes that cross the 32 x 16
+# output tile and the 64-deep k-tile (and its 4-stage ring: K = 300) and
+# P3's; `small_matmul.routes` counts the instantiation that ran.
+MATMUL_SHAPES = [(512, 256, 128), (65, 129, 70), (256, 64, 64), (33, 17, 5),
+                 (1, 300, 19), (512, 64, 64)]
+
+
+def _matmul_operand(rows, cols, dtype, seed, view, cuda):
+    """[rows, cols] on the card: ``aligned`` a column slice of a buffer whose
+    rows are 8 elements + 64 wider than cols rounded up to 8 (16-byte rows;
+    [256, 64] gets row stride 128, the scripts' lane slice), ``offset`` the
+    same starting one element in (no 16-byte row)."""
+    ld = -(-cols // 8) * 8 + 64
+    buf = _mosaic_randn((rows, ld), dtype, seed).to(cuda)
+    start = 0 if view == "aligned" else 1
+    return buf[:, start:start + cols]
+
+
+@pytest.mark.parametrize("dtype", MOSAIC_DTYPES)
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_small_matmul_instantiations_vs_plain(cuda, m, k, n, view, dtype):
+    from gnnome_tpu_torch.probes import mosaic_repro as M
+
+    a = _matmul_operand(m, k, dtype, m + k, view, cuda)
+    b = _matmul_operand(k, n, dtype, k + n, view, cuda)
+    route = "vector" if view == "aligned" else "scalar"
+    assert M.matmul_route(a, b) == route
+    before = dict(M.small_matmul.routes)
+    got = M.small_matmul(a, b)
+    again = M.small_matmul(a, b)
+    assert M.small_matmul.routes[route] == before[route] + 2
+    assert sum(M.small_matmul.routes.values()) == sum(before.values()) + 2
+    ref = M.small_matmul_plain(a, b).float()
+    tol = 1e-5 * M.small_matmul_plain(a.abs(), b.abs()).float()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * torch.maximum(got.float().abs(), ref.abs())
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert bool(((got.float() - ref).abs() <= tol).all())
+    assert torch.equal(got, again)
+
+
+# stream_sum where a logical block is not whole tiles (4,100 16-byte words
+# a block: float32 d = 40, bf16 d = 80, ET = 410; tiles of 1,024 words)
+# and T below the card's 132 SMs: bit for bit its plain version.
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 40),
+                                     (torch.bfloat16, 80)])
+@pytest.mark.parametrize("k", [1, 2, 3, 12])
+@pytest.mark.parametrize("T", [1, 7, 100])
+def test_stream_sum_ragged_tiles_few_blocks(cuda, T, k, dtype, d):
+    from gnnome_tpu_torch.probes import dma_probe
+
+    ET = 410
+    assert ET * d * torch.tensor([], dtype=dtype).element_size() // 16 == 4100
+    xs = dma_probe.inputs(k, T * ET, d, dtype, cuda, seed=T + k)
+    got = dma_probe.chain(dma_probe.stream_sum, xs, T, ET, 2)
+    ref = dma_probe.chain(lambda ins, *_: dma_probe.stream_sum_plain(ins),
+                          xs, T, ET, 2)
+    assert torch.equal(got, ref)

@@ -424,3 +424,26 @@ def test_cases_share_times_only_with_their_function_and_name_call_sites():
                  "mosaic_f32_repro5.py:15 (roll_f32, barrier)"):
         assert site in sites
     assert by["6_float32"]["ops"] == ["k3"]
+
+
+def test_small_matmul_routes_counted_and_reset():
+    """``small_matmul.routes`` counts the launches of each instantiation
+    (``matmul_route``: the C entry's choice), ``launch_counts`` reports them
+    as ``small_matmul:vector`` and ``small_matmul:scalar`` and
+    ``reset_launch_counts`` zeroes them with the rest; a CPU call runs the
+    plain version and counts nothing."""
+    from gnnome_tpu_torch.probes import reset_launch_counts
+
+    assert M.MATMUL_ROUTES == ("vector", "scalar")
+    M.small_matmul.routes["scalar"] += 2
+    assert launch_counts()["small_matmul:scalar"] >= 2
+    reset_launch_counts()
+    zero = launch_counts()
+    assert {k: v for k, v in zero.items() if k.startswith("small_matmul")} \
+        == {"small_matmul": 0, "small_matmul:vector": 0,
+            "small_matmul:scalar": 0}
+    assert not any(zero.values())
+    a = torch.randn(33, 21)[:, 2:19]            # an offset, strided view
+    b = torch.randn(17, 5)
+    assert torch.equal(M.small_matmul(a, b), M.small_matmul_plain(a, b))
+    assert launch_counts() == zero

@@ -346,3 +346,75 @@ def test_probe_command_lines_on_cpu(argv, n_lines):
     for r in rows:
         assert r["device"] == "cpu" and r["kernel"] == "plain"
         assert r["cpu_ms"] > 0 and "ms" not in r and r["bound_ms"] > 0
+
+
+# two forms of the ``-Xptxas -v`` report: CUDA 12's (barriers, no cmem)
+# and the older one (smem and cmem on the "Used" line); every entry
+# function has a properties line and a "Used" line
+PTXAS_LOGS = {
+    "barriers": (
+        "== probes/mosaic_ops.cu (rc=0)\n"
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112small_"
+        "matmulIfLb1EEEviiiPKT_lS3_lPS1_l' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_112small_"
+        "matmulIfLb1EEEviiiPKT_lS3_lPS1_l\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110row_"
+        "gatherIfEEviiiPKiPKT_lPS3_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_110row_"
+        "gatherIfEEviiiPKiPKT_lPS3_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 16 registers, used 0 barriers\n"
+        "== probes/stream_sum.cu (rc=0)\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110stream_"
+        "sumILi12ELb1EEEvNS_6InputsEP5uint4il' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_110stream_"
+        "sumILi12ELb1EEEvNS_6InputsEP5uint4il\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 0 barriers\n"),
+    "cmem": (
+        "ptxas info    : Compiling entry function '_Z12small_matmulI13__nv_"
+        "bfloat16Lb0EEviiiPKT_lS3_lPS1_l' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z12small_matmulI13__nv_"
+        "bfloat16Lb0EEviiiPKT_lS3_lPS1_l\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 56 registers, 2176 bytes smem, 400 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z10stream_sumILi1ELb0EEv"
+        "6InputsP5uint4il' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z10stream_sumILi1ELb0EEv"
+        "6InputsP5uint4il\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 30 registers, 384 bytes cmem[0]\n"),
+}
+
+
+@pytest.mark.parametrize("form", sorted(PTXAS_LOGS))
+def test_ptxas_resources_reads_each_instantiation(form):
+    from gnnome_tpu_torch.probes import ptxas_resources
+
+    log = PTXAS_LOGS[form]
+    got = ptxas_resources(log, ("small_matmul", "stream_sum"))
+    keep = ("registers", "stack_bytes", "spill_stores", "spill_loads",
+            "smem_bytes")
+    want = {"barriers": [(80, 0, 0, 0, 0), (255, 8, 12, 16, 0)],
+            "cmem": [(56, 0, 0, 0, 2176), (30, 0, 0, 0, 0)]}[form]
+    assert [tuple(r[k] for k in keep) for r in got] == want
+    assert ["small_matmul" in r["function"] for r in got] == [True, False]
+    other = ptxas_resources(log, ("row_gather",))
+    assert [r["registers"] for r in other] == (
+        [] if form == "cmem" else [16])
+
+
+def test_in_turns_runs_kernel_library_library_kernel():
+    from gnnome_tpu_torch.probes import in_turns
+
+    order = []
+    got = in_turns(lambda: order.append("k"), lambda: order.append("l"),
+                   torch.device("cpu"), 3)
+    assert order == ["k"] * 3 + ["l"] * 6 + ["k"] * 3
+    assert set(got) == {"kernel_ms", "library_ms"}
+    assert all(len(v) == 2 and min(v) >= 0 for v in got.values())
