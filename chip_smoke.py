@@ -207,6 +207,28 @@ seconds since the script started):
    layer.  Then ``cli infer --set compute.mesh=2`` with phase 8's
    layer-norm model on its dataset: phase 8's FASTA byte for byte, 8 K1 +
    8 K2 per rank.
+15. ``entry``: the entry point (``gnnome_tpu_torch/entry.py``):
+   ``entry()`` on the card (the batch-norm model at full width, d = 64, 8
+   layers, ``init_weights(0)``, on the 60-read synthetic graph), its
+   logits within 1e-4 + 1e-4 |x| of ``entry(device="cpu")``, a second call
+   bitwise equal, exactly 8 K3 + 1 K6 float32 launches; the first call's
+   wall time and a warm call's time.
+16. ``dryrun``: ``dryrun_multichip(2)`` on the card (gloo ranks sharing
+   it): a finite loss, the parameters after Adam bitwise equal on every
+   rank, 16/16/16/2/2 K7/K3/K8/K6/K9 per rank, JAX's line printed.
+17. ``multihost``: two ``torch.distributed.run`` launchers of one rank
+   each (127.0.0.1, a free port; the card shared over gloo) run
+   scripts/torch_multihost_smoke.py's step on ``random_bench_graph(16,384,
+   6.0)``: one loss, bitwise that of the same step on ``spawn``'s two
+   ranks (run in phase 13's group of 2), and the same launches per rank
+   (16/16/16/2/2).
+18. ``projection``: the halo wire-cost model
+   (``gnnome_tpu_torch/parallel/projection.py``), host only: its bytes and
+   calls per forward (with the logits' gather) and per step at P = 2 and 4
+   on phase 13's bench graph equal every rank's ``Group.sent`` and
+   ``Group.calls`` there; its times from phase 13's single-device times
+   and idle-collective latencies, at NVLink and InfiniBand rates, printed
+   beside the times phase 13 measured, each line marked as a model.
 
 Then one JSON line with every kernel's numbers (``ms`` its device time,
 ``call_ms`` its back-to-back call time, at the widths of its main path;
@@ -217,7 +239,8 @@ one-sided walk from that of phase 10; every path's in
 are all of them; phase 13's ``cli`` and few-pairs paths per rank; phase
 14's ``cli`` path and its golden and few-pairs forwards per rank; phase
 5b's ``infer_gfa_hifiasm``, ``infer_gfa_raven``, ``run`` and
-``train_gfa``); ``dtypes`` the element types it runs, and for K1, K2,
+``train_gfa``; phases 15-17's ``entry``, ``dryrun_2`` and ``multihost``,
+rank 0's, every rank's checked equal); ``dtypes`` the element types it runs, and for K1, K2,
 K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
 bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
 run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
@@ -244,6 +267,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2809,22 +2833,6 @@ HALO_STEP_LAUNCHES = {"k3_edge_stage": 16, "k6_score_gate": 2,
 HALO_REPS, HALO_STEP_REPS = 3, 2
 
 
-def bench_unit(src, dst, n_nodes: int):
-    """bench.py:428-432 on a graph: degrees, seeded N(0, 1) edge features
-    and Bernoulli(0.5) labels, as a training unit."""
-    import numpy as np
-
-    from gnnome_tpu_torch.train.step import HostUnit
-
-    rng = np.random.default_rng(0)
-    E = int(src.shape[0])
-    e = rng.normal(size=(E, 2)).astype(np.float32)
-    y = (rng.random(E) < 0.5).astype(np.float32)
-    return HostUnit(np.bincount(dst, minlength=n_nodes).astype(np.float32),
-                    np.bincount(src, minlength=n_nodes).astype(np.float32),
-                    e, y, src, dst, n_nodes)
-
-
 def unit_features(unit):
     """The z-scored (in, out) degree features of ``unit`` (make_example)."""
     import numpy as np
@@ -3020,15 +3028,18 @@ def few_pairs_checks(fwd, step, ref_lo, ref_step, what: str) -> dict:
             "step_launches_per_rank": [r["launches"] for r in step]}
 
 
-def phase_halo(dev, p4_jobs=()):
+def phase_halo(dev, p4_jobs=(), p2_jobs=()):
     """The halo path over ranks sharing the card: the bench mesh graph at
     P = 2 and 4 (eval, a float32 train step; a bf16 step too), the golden
     graph through the uncapped route (P = 2: eval, AP, a step), the
     1,048,576-node graph's eval, each P's checks in one spawn; then ``cli
     infer`` and ``cli train`` with compute.mesh=2 against their
-    single-device runs.  ``p4_jobs`` join the group of 4 ranks.  Returns
-    the halo paths' per-rank launches and, for each of ``p4_jobs``, every
-    rank's result."""
+    single-device runs.  ``p4_jobs`` join the group of 4 ranks, ``p2_jobs``
+    that of 2.  Returns the halo paths' per-rank launches, for each of
+    ``p4_jobs`` and of ``p2_jobs`` every rank's result, and the bench
+    graph's single-device times and, per P, every
+    rank's bytes, calls and times of its forward and step and its idle
+    collectives' times (``phase_projection``'s inputs)."""
     import gc
 
     import numpy as np
@@ -3051,13 +3062,13 @@ def phase_halo(dev, p4_jobs=()):
     t_phase = time.perf_counter()
     params, state = load_model_weights(WEIGHTS)
     d = params["gnn"]["A1"]["w"].shape[-1]
-    bench = bench_unit(*random_bench_graph(
+    bench = checks.bench_unit(*random_bench_graph(
         HALO_BENCH["num_nodes"], HALO_BENCH["avg_degree"],
         seed=HALO_BENCH["seed"]), HALO_BENCH["num_nodes"])
     big_g = random_rc_bench_graph(HALO_BIG["num_nodes"],
                                   HALO_BIG["avg_degree"],
                                   seed=HALO_BIG["seed"])
-    big = bench_unit(big_g.src, big_g.dst, big_g.num_nodes)
+    big = checks.bench_unit(big_g.src, big_g.dst, big_g.num_nodes)
     golden = AssemblyGraph.load(GOLDEN)
     (golden_unit,) = host_units(golden, halo_cfg(dev),
                                 np.random.default_rng(0))
@@ -3095,7 +3106,7 @@ def phase_halo(dev, p4_jobs=()):
 
     cfg32, cfg16 = halo_cfg(dev), halo_cfg(dev, "bfloat16")
     emit("halo P=1", single_device=p1, reference_s=ref_s)
-    few_paths = {}
+    few_paths, wire = {}, {}
     for P in HALO_RANKS:
         jobs = [(checks.score_job, (*graphs["bench"], params, state, cfg32,
                                     HALO_REPS)),
@@ -3113,6 +3124,8 @@ def phase_halo(dev, p4_jobs=()):
                      (checks.train_step_job, (golden_unit, params, state,
                                               cfg32, 1.0))]
             names += ["bench_step_bf16", "golden_eval", "golden_step"]
+            jobs += list(p2_jobs)
+            names += [f"p2_job{i}" for i in range(len(p2_jobs))]
         else:
             jobs += [(checks.score_job, (*few, params, state, cfg32)),
                      (checks.train_step_job, (few_unit, params, state,
@@ -3127,6 +3140,13 @@ def phase_halo(dev, p4_jobs=()):
         by_job = list(zip(*res))        # per job, every rank's result
         what = f"halo P={P}"
         fwd, step, big_fwd, coll = by_job[:4]
+        wire[P] = {"forward": [{k: r[k] for k in ("rank", "bytes", "calls",
+                                                  "forward")} for r in fwd],
+                   "step": [{k: r[k] for k in ("rank", "bytes", "calls",
+                                               "step")} for r in step],
+                   "collectives": [{k: r[k] for k in ("all_reduce",
+                                                      "exchange")}
+                                   for r in coll]}
         row = {"spawn_s": spawn_s,
                "job_s": {name: [r["job_s"] for r in res_j] for name, res_j
                          in zip(names, by_job)},
@@ -3159,6 +3179,7 @@ def phase_halo(dev, p4_jobs=()):
             "forward_ms_per_rank": [r.get("forward") for r in big_fwd]}
         if P == 2:
             step16, gfwd, gstep = by_job[4:7]
+            p2_res = list(by_job[7:])
             check(gfwd[0]["route"] == "overflow-uncapped",
                   f"{what}: golden route {gfwd[0]['route']}")
             ap = get_aps(gfwd[0]["logits"], golden.y)
@@ -3245,7 +3266,8 @@ def phase_halo(dev, p4_jobs=()):
         paths[f"infer_halo_rank{r}"] = c
     for r, c in enumerate(train_launches):
         paths[f"train_halo_rank{r}"] = c
-    return {**paths, **few_paths}, p4_res
+    return ({**paths, **few_paths}, p4_res, p2_res,
+            {"single_device": p1, "ranks": wire})
 
 
 # ------------------------------------------------------------- sharded phase
@@ -3376,7 +3398,7 @@ def phase_sharded(dev, layer_run: dict, few_res: list) -> dict:
 
     t_phase = time.perf_counter()
     golden = AssemblyGraph.load(GOLDEN)
-    bench = bench_unit(*random_bench_graph(
+    bench = checks.bench_unit(*random_bench_graph(
         SHARDED_BENCH["num_nodes"], SHARDED_BENCH["avg_degree"],
         seed=SHARDED_BENCH["seed"]), SHARDED_BENCH["num_nodes"])
     graphs = {"golden": (golden.src, golden.dst, golden.num_nodes,
@@ -3470,6 +3492,224 @@ def phase_sharded(dev, layer_run: dict, few_res: list) -> dict:
     return paths
 
 
+# ------------------------------------- entry, dry run, multi-host, projection
+# The entry points (gnnome_tpu_torch/entry.py), a group of ranks that
+# launchers started (parallel/group.py join; scripts/torch_multihost_smoke.py)
+# and the halo wire-cost model (parallel/projection.py).  Bounds, set before
+# any card run: entry()'s logits within LOGIT_ATOL + LOGIT_RTOL·|x| of
+# entry(device="cpu"), a second card call bitwise equal, 8 K3 + 1 K6 float32
+# launches; the dry run (2 ranks sharing the card over gloo) a finite loss,
+# parameters bitwise equal on every rank, 16/16/16/2/2 K7/K3/K8/K6/K9 per
+# rank; two launchers of one rank each (127.0.0.1, a free port, the card
+# shared over gloo) on random_bench_graph(16,384, 6.0): one loss, bitwise
+# spawn's at 2 ranks on the same unit, the same launches per rank; the
+# model's bytes and calls per forward and step at P = 2 and 4 equal to
+# Group.sent and Group.calls of the halo phase's ranks.
+MULTIHOST_NODES = 16_384
+MULTIHOST_LINE = re.compile(r"MULTIHOST_OK rank=(\d+) world=(\d+) "
+                            r"local=(\d+) transport=(\S+) loss=(\S+) "
+                            r"launches=(\S+)")
+
+
+def phase_entry(dev) -> dict:
+    """``entry()`` on the card once, against ``entry(device="cpu")``;
+    returns its launches."""
+    import numpy as np
+    import torch
+
+    from gnnome_tpu_torch.entry import entry
+    from gnnome_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+
+    t0 = time.perf_counter()
+    fn, args = entry(str(dev))
+    setup_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lo = fn(*args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts, counts16 = launch_counts(), launch_counts(torch.bfloat16)
+    check(counts == expected_launches(**HALO_FORWARD_LAUNCHES)
+          and not any(counts16.values()),
+          f"entry: 8 K3 + 1 K6 float32 launches, got {counts} / {counts16}")
+    check(torch.equal(lo, fn(*args)), "entry: two card calls bitwise equal")
+    warm_ms = cuda_ms(lambda: fn(*args), reps=10, n=1)
+    fn_cpu, args_cpu = entry("cpu")
+    ref = fn_cpu(*args_cpu).numpy()
+    got = lo.cpu().numpy()
+    check(got.shape == ref.shape == (args[1].shape[0],)
+          and bool(np.isfinite(got).all()), f"entry: logits {got.shape}")
+    d = np.abs(got - ref)
+    check(bool((d <= LOGIT_ATOL + LOGIT_RTOL * np.abs(ref)).all()),
+          f"entry: card vs CPU logits (max {d.max()})")
+    emit("entry", edges=int(got.shape[0]), nodes=int(args[0].shape[0]),
+         max_abs_logit_diff=float(d.max()), launches=counts,
+         setup_s=setup_s, first_forward_wall_s=wall_s,
+         forward_ms=warm_ms,
+         tolerance={"logit_atol": LOGIT_ATOL, "logit_rtol": LOGIT_RTOL})
+    return counts
+
+
+def phase_dryrun(dev) -> dict:
+    """``dryrun_multichip(2)`` on the card; returns rank 0's launches."""
+    import numpy as np
+
+    from gnnome_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, str(dev))     # raises unless params agree
+    wall_s = time.perf_counter() - t0
+    check(bool(np.isfinite(res["loss"])), f"dryrun: loss {res['loss']}")
+    per_rank = res["launches_per_rank"]
+    check(all(c == expected_launches(**HALO_STEP_LAUNCHES) for c in per_rank)
+          and not any(any(c.values()) for c in res["launches_bf16_per_rank"]),
+          f"dryrun: launches per rank {per_rank}")
+    emit("dryrun", n=2, loss=res["loss"], K=res["K"], R=res["R"],
+         route=res["route"], edges_per_rank=res["edges_per_rank"],
+         launches_per_rank=per_rank, bytes_rank0=res["bytes"],
+         calls_rank0=res["calls"], params_bitwise_equal_on_every_rank=True,
+         wall_s=wall_s)
+    return per_rank[0]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_two_hosts(n_nodes: int, timeout: float = 300) -> list:
+    """Two ``torch.distributed.run`` launchers of one rank each on
+    127.0.0.1 running scripts/torch_multihost_smoke.py on the card; their
+    output.  Retried once on another port when the first was taken; every
+    launcher is killed on a timeout."""
+    from gnnome_tpu_torch.parallel.group import LAUNCH_ENV
+
+    script = os.path.join(ROOT, "scripts", "torch_multihost_smoke.py")
+    env = {k: v for k, v in os.environ.items()
+           if k not in LAUNCH_ENV + ("LOCAL_WORLD_SIZE",)}
+    for attempt in range(2):
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2",
+             "--node-rank", str(i), "--nproc-per-node", "1",
+             "--master-addr", "127.0.0.1", "--master-port", str(port),
+             script, "--device", "cuda", "--n-nodes", str(n_nodes)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT) for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise RuntimeError(f"multihost launchers timed out ({timeout} s)")
+        joined = "\n".join(outs)
+        if all(p.returncode == 0 for p in procs):
+            return outs
+        if attempt == 0 and re.search(r"address already in use|EADDRINUSE",
+                                      joined, re.I):
+            continue
+        raise RuntimeError("multihost launchers failed:\n" + joined[-3000:])
+
+
+def multihost_jobs(dev) -> list:
+    """The multi-host phase's reference: its step on ``spawn``'s two ranks
+    (run in the halo phase's group of 2 ranks, a spawn less)."""
+    from gnnome_tpu_torch.parallel import checks
+
+    return [(checks.train_step_job,
+             (*checks.multihost_inputs(MULTIHOST_NODES, 2, str(dev)), 1.0))]
+
+
+def phase_multihost(dev, ref: list) -> dict:
+    """One halo train step over two launchers' ranks against ``ref``, every
+    rank's result of ``multihost_jobs`` on ``spawn``'s two ranks; returns
+    rank 0's launches."""
+    t0 = time.perf_counter()
+    outs = launch_two_hosts(MULTIHOST_NODES)
+    launch_s = time.perf_counter() - t0
+    found = {int(m[0]): m for m in MULTIHOST_LINE.findall("\n".join(outs))}
+    check(sorted(found) == [0, 1] and all(m[1] == "2" and m[2] == "0"
+                                          for m in found.values()),
+          f"multihost: one line per rank, world 2: {sorted(found)}")
+    launches = [json.loads(found[r][5]) for r in (0, 1)]
+    check(all(found[r][4] == repr(ref[r]["loss"]) for r in (0, 1)),
+          f"multihost: losses {[found[r][4] for r in (0, 1)]} vs spawn's "
+          f"{[repr(r['loss']) for r in ref]}")
+    check(launches == [r["launches"] for r in ref] and all(
+        c == expected_launches(**HALO_STEP_LAUNCHES) for c in launches),
+          f"multihost: launches per rank {launches}")
+    emit("multihost", nodes=MULTIHOST_NODES, loss=ref[0]["loss"],
+         transport=[found[r][3] for r in (0, 1)],
+         launches_per_rank=launches, K=ref[0]["K"], R=ref[0]["R"],
+         launchers_wall_s=launch_s,
+         reference="spawn, 2 ranks, in the halo phase's group")
+    return launches[0]
+
+
+def phase_projection(halo_wire: dict) -> None:
+    """The halo wire-cost model on the halo phase's bench graph: its bytes
+    and calls per forward (with the logits' gather) and per step at each P
+    against what every rank's ``Group`` recorded, then the model's times
+    beside the measured ones (host only)."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.graphs.synthetic import random_bench_graph
+    from gnnome_tpu_torch.models.zoo import get_model
+    from gnnome_tpu_torch.parallel.halo import plan_graph
+    from gnnome_tpu_torch.parallel.projection import (LINKS, forward_traffic,
+                                                      project, step_traffic)
+
+    kind = "projection (a model, not a measurement)"
+    n = HALO_BENCH["num_nodes"]
+    src, dst = random_bench_graph(n, HALO_BENCH["avg_degree"],
+                                  seed=HALO_BENCH["seed"])
+    cfg = Config()
+    d, L = cfg.model.dim_latent, cfg.model.num_gnn_layers
+    n_params = sum(p.numel() for p in get_model(cfg.model).parameters())
+    p1 = halo_wire["single_device"]
+    t1 = {"forward": p1["bench_forward_ms"] / 1e3,
+          "step": p1["bench_step_ms"] / 1e3}
+    rows = []
+    for P, run in sorted(halo_wire["ranks"].items()):
+        plan, _ = plan_graph(src, dst, n, P)
+        coll = run["collectives"]
+        latency = {"p2p": max(c["exchange"]["host_ms"] for c in coll) / 1e3,
+                   "collective": max(c["all_reduce"]["host_ms"]
+                                     for c in coll) / 1e3}
+        for what in ("forward", "step"):
+            traffic = [forward_traffic(plan, r, d, L) if what == "forward"
+                       else step_traffic(plan, r, d, L, n_params)
+                       for r in range(P)]
+            got = run[what]
+            check(all(g["bytes"] == t.sent and g["calls"] == t.calls
+                      for g, t in zip(got, traffic)),
+                  f"projection P={P} {what}: bytes and calls "
+                  f"{[(g['bytes'], g['calls']) for g in got]} vs the model "
+                  f"{[(t.sent, t.calls) for t in traffic]}")
+            measured = max(g[what]["host_ms"] for g in got)
+            for link, rate in LINKS.items():
+                pt = project(t1[what], plan, traffic, rate, latency)
+                rows.append({"kind": kind, "P": P, "what": what,
+                             "link": link, **pt.as_dict(),
+                             "measured_shared_card_ms": measured})
+                print(f"projection | {kind} | P={P} {what} {link}: "
+                      f"t1/P {pt.t_compute_s * 1e3:.4f} ms + wire "
+                      f"{pt.t_wire_s * 1e3:.4f} + latency "
+                      f"{pt.t_latency_s * 1e3:.4f} = "
+                      f"{pt.t_step_s * 1e3:.4f} ms, efficiency "
+                      f"{pt.efficiency:.4f} (measured on the shared card: "
+                      f"{measured:.4f} ms)", flush=True)
+    emit("projection", kind=kind, graph=dict(HALO_BENCH), d=d, layers=L,
+         params=n_params, t1_ms={k: v * 1e3 for k, v in t1.items()},
+         latency_source="the halo phase's idle collectives (gloo, shared "
+                        "card), the slower rank's median",
+         bytes_and_calls_equal_the_groups=True, rows=rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3512,9 +3752,14 @@ def main(argv=None) -> int:
         phase_cli_unfused_bf16())
     phase_zoo(dev)
     paths["train_zoo"], paths["infer_zoo"] = phase_cli_zoo()
-    halo_paths, few_sharded = phase_halo(dev, sharded_few_jobs(dev))
+    halo_paths, few_sharded, (multihost_ref,), halo_wire = phase_halo(
+        dev, sharded_few_jobs(dev), multihost_jobs(dev))
     paths.update(halo_paths)
     paths.update(phase_sharded(dev, layer_run, few_sharded))
+    paths["entry"] = phase_entry(dev)
+    paths["dryrun_2"] = phase_dryrun(dev)
+    paths["multihost"] = phase_multihost(dev, multihost_ref)
+    phase_projection(halo_wire)
 
     def row(name, src, replaces, main_path, t, errs, width):
         """The summary of kernel ``name``: times ``t`` at ``width`` (the

@@ -23,7 +23,9 @@ alone, spawn P ranks that split each graph between them: ``infer`` for
 every model (the batch-norm SymGatedGCN on ``parallel/halo.py``, the others
 on ``parallel/sharded.py``), ``train`` for the batch-norm SymGatedGCN (it
 refuses the others, which the JAX package trains on one device); the
-command exits nonzero if any rank fails.
+command exits nonzero if any rank fails.  Started by ``torchrun`` (one
+launcher per host), each process joins the launchers' group as one rank
+instead; ``compute.mesh`` must then equal ``WORLD_SIZE``.
 """
 from __future__ import annotations
 

@@ -13,10 +13,12 @@ of ``gnnome_tpu/infer.py:65-77``): the batch-norm SymGatedGCN on the halo
 path (``parallel/halo.py``), every other model on the sharded path
 (``parallel/sharded.py``, in float32).  ``run_inference`` and
 ``score_graph`` started outside a group spawn the ranks
-(``parallel.group.spawn``); every rank scores its shard of each graph
-whose logits are not cached, rank 0 gathers them, writes the cache,
-decodes and writes the FASTA, and its summary is the call's.  No path
-falls back to one device.
+(``parallel.group.run``), or, in a process a launcher started (a
+launcher per host, ``compute.mesh`` its ``WORLD_SIZE``), join the
+launcher's group; every rank scores its shard of each graph whose logits
+rank 0 finds no cache for (rank 0 decides: the hosts' disks may differ),
+rank 0 gathers them, writes the cache, decodes and writes the FASTA, and
+its summary is the call's.  No path falls back to one device.
 """
 from __future__ import annotations
 
@@ -87,12 +89,13 @@ def _score_rank(group, graph, params, state, cfg: Config):
 def score_graph(graph, params, state, cfg: Config | None = None) -> np.ndarray:
     """Edge logits [E] for a host graph with the numpy pytree weights, on
     ``cfg.compute.device`` (over ``compute.mesh`` ranks when it is > 1)."""
+    from .parallel.group import run, wants_group
+
     cfg = cfg or Config()
-    if cfg.compute.mesh > 1:
-        from .parallel.group import spawn
+    if wants_group(cfg.compute.mesh):
         check_compute(cfg, "infer")
-        return spawn(_score_rank, cfg.compute.mesh, graph, params, state,
-                     cfg, device=cfg.compute.device)[0]
+        return run(_score_rank, cfg.compute.mesh, graph, params, state, cfg,
+                   device=cfg.compute.device)
     device = resolve_device(cfg.compute.device)
     return score_model(load_model(params, state, cfg, device), graph, cfg,
                        device)
@@ -109,15 +112,17 @@ def _inference_rank(group, *args):
 
 def _halo_score_dataset(ds, model_path: str, cfg: Config, group,
                         decode_dir: str) -> list:
-    """Every rank scores its shard of each graph of ``ds`` that has no
-    logits cache; rank 0 writes the caches.  Returns every rank's kernel
-    launches (``parallel.halo.rank_launches``)."""
+    """Every rank scores its shard of each graph of ``ds`` for which rank 0
+    finds no logits cache (its decision, broadcast: another host's disk
+    may hold other files); rank 0 writes the caches.  Returns every rank's
+    kernel launches (``parallel.halo.rank_launches``)."""
     from .parallel.halo import rank_launches
 
     model = None
     for idx, graph in ds:
         predicts_path = os.path.join(decode_dir, f"{idx}_predicts.npy")
-        if not _needs_scores(cfg, predicts_path):
+        if not group.broadcast(group.rank == 0
+                               and _needs_scores(cfg, predicts_path)):
             continue
         if model is None:
             params, state = load_model_weights(model_path)
@@ -133,15 +138,17 @@ def run_inference(data_path: str, model_path: str, assembler: str,
                   verbose: bool = True, group=None) -> dict | None:
     """Full inference over every graph in a dataset directory
     (reference inference.py:364-501).  With ``compute.mesh > 1`` and no
-    ``group`` it spawns the ranks and returns rank 0's summary; a rank of
-    a ``group`` returns None unless it is rank 0."""
+    ``group`` it spawns the ranks and returns rank 0's summary (in a
+    launcher's rank: joins its group, and returns this rank's); a rank of
+    a group returns None unless it is rank 0."""
+    from .parallel.group import run, wants_group
+
     cfg = cfg or Config()
-    if cfg.compute.mesh > 1 and group is None:
-        from .parallel.group import spawn
+    if group is None and wants_group(cfg.compute.mesh):
         check_compute(cfg, "infer")
-        return spawn(_inference_rank, cfg.compute.mesh, data_path,
-                     model_path, assembler, savedir, cfg, verbose,
-                     device=cfg.compute.device)[0]
+        return run(_inference_rank, cfg.compute.mesh, data_path, model_path,
+                   assembler, savedir, cfg, verbose,
+                   device=cfg.compute.device)
     device = (group.device if group is not None
               else resolve_device(cfg.compute.device))
     rng_np, _ = set_seed(cfg.train.seed)

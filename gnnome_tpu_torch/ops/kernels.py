@@ -31,7 +31,10 @@ Build: at first CUDA use, ``nvcc -gencode arch=compute_90a,code=sm_90a``
 compiles every source of ``SOURCES`` under ``csrc/`` (one process per
 source, all started together) and links them into
 ``build/libgnnome_kernels.so`` at the repository root, loaded with ctypes
-through a plain C interface.  The library is rebuilt when a source or a
+through a plain C interface.  ``BUILD_DIR`` is the ``build`` directory
+beside the package, so an installed package builds into
+``<site-packages>/build``, which the user may not be able to write; run
+from a checkout then.  The library is rebuilt when a source or a
 header is newer than it.  ``build_library`` builds any such library (the
 probes' ``build/libgnnome_probes.so``, ``gnnome_tpu_torch/probes``).
 Nothing is built or imported from the CUDA toolkit when this module is

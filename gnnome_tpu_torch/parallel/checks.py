@@ -176,10 +176,11 @@ def train_step_job(group, unit, params, state, cfg: Config,
                    pos_weight: float, reps: int = 0) -> dict:
     """One halo train step from ``(params, state)`` on ``unit`` (a
     ``train.step.HostUnit``) with Adam at ``cfg.train.lr``: on every rank
-    the loss, the parameters and state after the step (numpy pytrees) and
-    the launches and its shard's edge count; on rank 0 also the summed
-    gradients and the host-order logits.  With ``reps`` also the step's
-    time (further steps from the state reached)."""
+    the loss, the parameters and state after the step (numpy pytrees), the
+    launches, its shard's edge count and the bytes it sent and the
+    exchanges and collectives it joined in the step; on rank 0 also the
+    summed gradients and the host-order logits.  With ``reps`` also the
+    step's time (further steps from the state reached)."""
     from ..train.step import make_optimizer
 
     model = _model(params, state, cfg, group.device)
@@ -187,8 +188,11 @@ def train_step_job(group, unit, params, state, cfg: Config,
     gen = dropout_generator(cfg.train.seed, group.rank, group.device)
     sh = halo_example_from_unit(unit, group, group.device)
     reset_launch_counts()
+    sent0, calls0 = dict(group.sent), dict(group.calls)
     loss, lo = halo_train_step(model, opt, sh, group, pos_weight, cfg, gen)
     _sync(group.device)
+    sent = {k: group.sent[k] - sent0[k] for k in sent0}
+    calls = {k: group.calls[k] - calls0[k] for k in calls0}
     counts, counts_bf16 = launch_counts(), launch_counts(torch.bfloat16)
     sd = model.state_dict()
     grads = {n: p.grad for n, p in model.named_parameters()}
@@ -199,6 +203,7 @@ def train_step_job(group, unit, params, state, cfg: Config,
            "state": new_state, "launches": counts,
            "launches_bf16": counts_bf16, "route": sh.plan.route,
            "K": sh.plan.K, "R": sh.plan.R, "n_edges": int(sh.g.n_edges),
+           "bytes": sent, "calls": calls,
            "grads": _copy(g_params) if group.rank == 0 else None,
            "logits": logits}
     if reps:
@@ -206,6 +211,47 @@ def train_step_job(group, unit, params, state, cfg: Config,
             lambda: halo_train_step(model, opt, sh, group, pos_weight, cfg,
                                     gen), group.device, reps)
     return out
+
+
+def bench_unit(src, dst, n_nodes: int, seed: int = 0):
+    """A training unit of a bare graph, as the JAX bench and multi-host
+    smoke make one (bench.py:428-432, scripts/multihost_smoke.py:65-73):
+    degrees, N(0, 1) edge features [E, 2] and Bernoulli(0.5) labels drawn
+    from ``seed``."""
+    from ..train.step import HostUnit
+
+    rng = np.random.default_rng(seed)
+    E = int(np.asarray(src).shape[0])
+    e = rng.normal(size=(E, 2)).astype(np.float32)
+    y = (rng.random(E) < 0.5).astype(np.float32)
+    return HostUnit(np.bincount(dst, minlength=n_nodes).astype(np.float32),
+                    np.bincount(src, minlength=n_nodes).astype(np.float32),
+                    e, y, src, dst, n_nodes)
+
+
+def multihost_inputs(n_nodes: int, size: int, device: str = "cpu"):
+    """``(unit, params, state, cfg)`` of the multi-host smoke step
+    (scripts/torch_multihost_smoke.py; the JAX package's
+    scripts/multihost_smoke.py:55-79): ``random_bench_graph(n_nodes, 6.0,
+    seed=0)`` as a ``bench_unit``, the default model from
+    ``init_weights(1)``, masking off, ``compute.mesh`` ``size``."""
+    from ..graphs.synthetic import random_bench_graph
+    from ..models.convert import pytrees_from_model
+
+    cfg = Config()
+    cfg.compute.device = device
+    cfg.compute.mesh = size
+    cfg.train.masking = False
+    src, dst = random_bench_graph(n_nodes, 6.0, seed=0)
+    params, state = pytrees_from_model(get_model(cfg.model).init_weights(1))
+    return bench_unit(src, dst, n_nodes), params, state, cfg
+
+
+def per_rank_job(group, fn, args_of_rank):
+    """``fn(*args_of_rank[group.rank], group=group)``: every rank with its
+    own arguments (its own paths), as each host's launcher passes its own
+    command line."""
+    return fn(*args_of_rank[group.rank], group=group)
 
 
 def eval_step_job(group, unit, params, state, cfg: Config,

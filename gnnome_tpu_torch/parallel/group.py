@@ -2,20 +2,31 @@
 counterpart of ``gnnome_tpu/parallel/mesh.py``.
 
 A ``Group`` is one rank's view of P processes that together hold one graph
-(``parallel/halo.py``).  ``spawn(fn, P, ...)`` starts them and returns what
-each returned.  The transport:
+(``parallel/halo.py``).  ``spawn(fn, P, ...)`` starts them on this host and
+returns what each returned; ``run(fn, P, ...)`` does the same, or, in a
+process that a launcher started (``torchrun`` / ``python -m
+torch.distributed.run``, one launcher per host), joins the launcher's
+group as its rank and returns this rank's result.  The transport:
 
-* **NCCL** when the model runs on CUDA and the machine has at least P GPUs:
-  rank r on ``cuda:r``, collectives on the card's tensors.
+* **NCCL** when the model runs on CUDA and the host has a GPU for each of
+  its ranks: local rank l on ``cuda:l``, collectives on the card's
+  tensors.
 * **gloo** otherwise: CPU ranks, or several ranks sharing one card (NCCL
   refuses two ranks on one device).  gloo's point-to-point calls take CPU
   tensors only, so with CUDA tensors every message is staged through pinned
   host buffers here, explicitly; the model's tensors stay on the card.
 
-Rendezvous is a ``torch.distributed.FileStore`` in a temporary directory
-(no socket).  Every collective times out after ``TIMEOUT_S``, so a rank
-that hangs makes the others fail; ``spawn`` joins its ranks (with a
-deadline if asked), and when a rank fails it kills the others and raises.
+Rendezvous: ``spawn``'s ranks meet at a ``torch.distributed.FileStore``
+in a temporary directory (no socket, one host); a launcher's ranks at the
+``TCPStore`` its environment names (``init_method="env://"``: ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; the
+global rank is the host index times the local ranks plus the local rank,
+as ``torchrun`` sets it).  ``compute.mesh`` must equal ``WORLD_SIZE``
+there.  Every collective times out after ``TIMEOUT_S``, so a rank that
+hangs makes the others fail; ``spawn`` joins its ranks (with a deadline if
+asked), and when a rank fails it kills the others and raises.  Where the
+ranks may see different files (a launcher per host), rank 0 decides and
+``Group.broadcast`` hands its decision to the others.
 
 Sums over ranks are gathered and added in rank order, the same on every
 rank, so replicated values (parameters, their gradients, statistics) stay
@@ -23,8 +34,11 @@ bitwise equal across ranks whatever the backend's reduction order.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import pickle
 import queue
+import socket
 import sys
 import tempfile
 import time
@@ -39,9 +53,10 @@ TIMEOUT_S = 1800.0          # every collective's
 
 
 def transport(device: str, size: int) -> tuple[str, bool]:
-    """``(backend, shared)`` for ``size`` ranks computing on ``device``
-    (``compute.device``): NCCL with a GPU per rank where there are enough
-    GPUs, else gloo; ``shared``: the ranks share one card."""
+    """``(backend, shared)`` for ``size`` ranks of one host computing on
+    ``device`` (``compute.device``): NCCL with a GPU per rank where the
+    host has enough GPUs, else gloo; ``shared``: the ranks share one
+    card."""
     if torch.device(device).type != "cuda":
         return "gloo", False
     if not torch.cuda.is_available():
@@ -65,6 +80,59 @@ def describe(device: str, size: int) -> str:
     return f"halo: {size} ranks on {size} GPUs, nccl"
 
 
+@dataclass(frozen=True)
+class Launch:
+    """This process's place in a launcher's group (its environment)."""
+    rank: int
+    size: int
+    local_rank: int
+    local_size: int
+
+
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT")
+
+
+def launched() -> Launch | None:
+    """This process's ``Launch`` when a launcher started it (``RANK`` and
+    ``WORLD_SIZE`` set), else None.  Raises when the launcher's other
+    variables are missing."""
+    env = os.environ
+    if "RANK" not in env or "WORLD_SIZE" not in env:
+        return None
+    missing = [k for k in LAUNCH_ENV if k not in env]
+    if missing:
+        raise RuntimeError(f"RANK and WORLD_SIZE are set but {missing} are "
+                           "not: start the ranks with torchrun (python -m "
+                           "torch.distributed.run)")
+    size = int(env["WORLD_SIZE"])
+    return Launch(int(env["RANK"]), size, int(env["LOCAL_RANK"]),
+                  int(env.get("LOCAL_WORLD_SIZE", size)))
+
+
+def check_launch(mesh: int) -> bool:
+    """Whether this process is a rank of a launcher's group of more than
+    one rank.  Raises when ``compute.mesh`` (0 or 1: one device) is not
+    the group's ``WORLD_SIZE``: every rank of the group must run the same
+    sharded step."""
+    launch = launched()
+    if launch is None:
+        return False
+    if max(mesh, 1) != launch.size:
+        raise ValueError(
+            f"compute.mesh={mesh} but the launcher started WORLD_SIZE="
+            f"{launch.size} ranks; set --set compute.mesh={launch.size}, "
+            "or run without the launcher")
+    return launch.size > 1
+
+
+def wants_group(mesh: int) -> bool:
+    """Whether an entry point with ``compute.mesh`` runs over a group:
+    ``mesh > 1``, or a launcher's group (``check_launch``, which refuses a
+    ``mesh`` that is not its size)."""
+    return check_launch(mesh) or mesh > 1
+
+
 @dataclass
 class Group:
     """One rank of a group: its ``rank`` of ``size``, the ``device`` its
@@ -77,6 +145,7 @@ class Group:
     device: torch.device
     backend: str
     staged: bool
+    local_rank: int = 0
     sent: dict = field(default_factory=lambda: {"p2p": 0, "collective": 0})
     calls: dict = field(default_factory=lambda: {"p2p": 0, "collective": 0})
     _pinned: dict = field(default_factory=dict)
@@ -183,6 +252,25 @@ class Group:
             return None
         return [p[:c].to("cpu", copy=True) for p, c in zip(parts, counts)]
 
+    def broadcast(self, obj):
+        """Rank 0's ``obj`` (any picklable value) on every rank: where the
+        ranks may see different files (a launcher per host), rank 0
+        decides.  Rank 0 sends its pickle's bytes (counted in ``sent``)."""
+        data = pickle.dumps(obj) if self.rank == 0 else b""
+        dev = self.device if self.backend == "nccl" else "cpu"
+        n = torch.tensor([len(data)], dtype=torch.int64, device=dev)
+        dist.broadcast(n, src=0)
+        n = int(n.item())
+        buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+               if self.rank == 0 else
+               torch.empty(n, dtype=torch.uint8, device=dev))
+        dist.broadcast(buf, src=0)
+        self.calls["collective"] += 1
+        if self.rank == 0:
+            self.sent["collective"] += n
+            return obj
+        return pickle.loads(buf.cpu().numpy().tobytes())
+
 
 class AllReduce(torch.autograd.Function):
     """``group.all_reduce`` with its adjoint: every rank consumes the sum,
@@ -204,6 +292,19 @@ def all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- launching
+def _rank_device(device: str, backend: str, local_rank: int) -> torch.device:
+    """The device a rank's model runs on: ``cuda:{local_rank}`` under NCCL,
+    the named (or first) card when the ranks share one, else the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from ..config import resolve_device
+        dev = resolve_device(f"cuda:{local_rank}" if backend == "nccl"
+                             else (device if dev.index is not None
+                                   else "cuda:0"))
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def _rank_main(rank, size, store_path, device, results, fn, args):
     """One rank: join the group, run ``fn(group, *args)``, report.  Ranks
     other than 0 print nothing (their errors still reach the caller)."""
@@ -212,19 +313,14 @@ def _rank_main(rank, size, store_path, device, results, fn, args):
         sys.stdout = open(os.devnull, "w")
     try:
         backend, shared = transport(device, size)
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            from ..config import resolve_device
-            dev = resolve_device(f"cuda:{rank}" if backend == "nccl"
-                                 else (device if dev.index is not None
-                                       else "cuda:0"))
-            torch.cuda.set_device(dev)
+        dev = _rank_device(device, backend, rank)
         store = dist.FileStore(store_path, size)
         kw = {"device_id": dev} if backend == "nccl" else {}
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=size,
                                 timeout=timedelta(seconds=TIMEOUT_S), **kw)
-        group = Group(rank, size, dev, backend, staged=shared)
+        group = Group(rank, size, dev, backend, staged=shared,
+                      local_rank=rank)
         results.put((rank, True, fn(group, *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -295,3 +391,77 @@ def spawn(fn, size: int, *args, device: str = "cpu",
     if errors:
         raise RuntimeError("halo group failed: " + "\n".join(errors))
     return out
+
+
+def join(device: str = "cpu") -> Group:
+    """Join the group of the launcher that started this process (see
+    ``launched``; the counterpart of ``jax.distributed.initialize()``)
+    through the ``TCPStore`` its environment names, and return this rank's
+    ``Group``.  The transport: NCCL where this host has a GPU for each of
+    its ranks (``LOCAL_WORLD_SIZE``; local rank l on ``cuda:l``) and no two
+    ranks of the group hold the same card (they publish its UUID in the
+    store; launchers for two "hosts" on one machine share its cards), else
+    gloo with the messages staged through host memory.  One thread a rank,
+    as ``spawn``'s.  With CUDA, local rank 0 builds the kernel library
+    while the others wait.  ``leave`` ends the group."""
+    launch = launched()
+    if launch is None:
+        raise RuntimeError("join: no launcher started this process (RANK, "
+                           "WORLD_SIZE unset); use spawn")
+    backend, shared = transport(device, launch.local_size)
+    torch.set_num_threads(1)
+    dev = _rank_device(device, backend, launch.local_rank)
+    timeout = timedelta(seconds=TIMEOUT_S)
+    store, _, _ = next(dist.rendezvous("env://", launch.rank, launch.size,
+                                       timeout=timeout))
+    if dev.type == "cuda":
+        store.set(f"gnnome_card/{launch.rank}", _card_id(dev))
+        cards = {store.get(f"gnnome_card/{r}") for r in range(launch.size)}
+        if backend == "nccl" and len(cards) < launch.size:
+            backend, shared = "gloo", True
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store, rank=launch.rank,
+                            world_size=launch.size, timeout=timeout, **kw)
+    if dev.type == "cuda":
+        if launch.local_rank == 0:
+            from ..ops.kernels import build_kernels
+            build_kernels()
+        dist.barrier()
+    return Group(launch.rank, launch.size, dev, backend, staged=shared,
+                 local_rank=launch.local_rank)
+
+
+def _card_id(dev: torch.device) -> bytes:
+    """The card's UUID (its host name and index where torch gives none)."""
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+    name = (str(uuid) if uuid is not None
+            else f"{socket.gethostname()}/{dev.index}")
+    return name.encode()
+
+
+def leave() -> None:
+    """End this process's group (``join``)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def run(fn, size: int, *args, device: str = "cpu"):
+    """``fn(group, *args)`` over ``size`` ranks.  In a process a launcher
+    started (``check_launch``: ``size`` must be its ``WORLD_SIZE``) it
+    joins the launcher's group and returns this rank's result (ranks
+    other than 0 print nothing meanwhile); otherwise it starts the ranks
+    on this host (``spawn``) and returns rank 0's."""
+    if not check_launch(size):
+        return spawn(fn, size, *args, device=device)[0]
+    group = join(device)
+    try:
+        with contextlib.ExitStack() as quiet:
+            if group.rank:
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            print(f"halo: {size} ranks from launchers, {group.backend}"
+                  + (", strips staged through host" if group.staged else ""),
+                  flush=True)
+            return fn(group, *args)
+    finally:
+        leave()

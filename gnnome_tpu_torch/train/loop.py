@@ -22,13 +22,17 @@ JAX layout, which both packages load.
 
 With ``compute.mesh = P > 1`` (the batch-norm SymGatedGCN only; JAX
 ``_HaloRunner``, train/loop.py:77-115,221-232) ``train`` started outside a
-group spawns P ranks (``parallel.group.spawn``) and returns rank 0's
-result.  Every rank builds the same host units from the same seeds and
-trains on its shard of each (``parallel/halo.py``): the gradients are
-summed over ranks and every rank steps the same Adam, so the parameters
-stay equal.  Rank 0 alone gathers the logits for the metrics and writes
-the log, the checkpoints and the best model; every rank resumes from the
-same checkpoint, which holds each rank's dropout generator state.  Each
+group spawns P ranks (``parallel.group.run``) and returns rank 0's
+result; in a process a launcher started (a launcher per host,
+``compute.mesh`` its ``WORLD_SIZE``) it joins the launcher's group.
+Every rank builds the same host units from the same seeds and trains on
+its shard of each (``parallel/halo.py``): the gradients are summed over
+ranks and every rank steps the same Adam, so the parameters stay equal.
+Rank 0 alone gathers the logits for the metrics and writes the log, the
+checkpoints and the best model; on ``resume`` rank 0 alone reads the
+checkpoint, which holds each rank's dropout generator state, and sends
+it to the others, and the run's name is rank 0's (the hosts' disks and
+clocks may differ).  Each
 epoch's log line adds the halo routes its units took (``halo_routes``)
 and every rank's kernel launches in the epoch (``halo_launches``).
 """
@@ -210,8 +214,13 @@ def _save_ckpt(path, epoch, model, opt, scheduler, loss_train, loss_valid,
 def _load_ckpt(path, model, opt, scheduler, rng_np, generator, device,
                group=None):
     """Restores everything ``_save_ckpt`` wrote; returns (start_epoch,
-    loss_train, loss_valid)."""
-    trees = load_pytrees(path)
+    loss_train, loss_valid).  In a group rank 0 reads the file and sends
+    its arrays to the others."""
+    if group is None:
+        trees = load_pytrees(path)
+    else:
+        trees = group.broadcast(load_pytrees(path) if group.rank == 0
+                                else None)
     load_model_pytrees(model, trees["params"], trees.get("state", {}))
     for name, p in model.named_parameters():
         st = trees["opt"][name]
@@ -240,16 +249,16 @@ def train(train_path: str, valid_path: str, assembler: str,
           group=None) -> str:
     """Train the edge scorer ``cfg.model`` names (the SymGatedGCN or a zoo
     model); returns the best-model path.  With ``compute.mesh > 1`` and no
-    ``group`` it spawns the ranks and returns rank 0's result."""
+    ``group`` it spawns the ranks and returns rank 0's result (in a
+    launcher's rank: joins its group, and returns this rank's)."""
+    from ..parallel.group import run, wants_group
+
     cfg = cfg or Config()
-    if cfg.compute.mesh > 1 and group is None:
-        from ..parallel.group import spawn
+    if group is None and wants_group(cfg.compute.mesh):
         check_compute(cfg, "train")
-        if out_name is None:            # one name for every rank
-            out_name = datetime.now().strftime("%Y-%b-%d-%H-%M-%S")
-        return spawn(_train_rank, cfg.compute.mesh, train_path, valid_path,
-                     assembler, out_name, overfit, resume, cfg,
-                     device=cfg.compute.device)[0]
+        return run(_train_rank, cfg.compute.mesh, train_path, valid_path,
+                   assembler, out_name, overfit, resume, cfg,
+                   device=cfg.compute.device)
     lead = group is None or group.rank == 0
     device = (resolve_device(cfg.compute.device) if group is None
               else group.device)
@@ -264,6 +273,8 @@ def train(train_path: str, valid_path: str, assembler: str,
 
     timestamp = datetime.now().strftime("%Y-%b-%d-%H-%M-%S")
     out = (out_name or timestamp) + f"_seed{cfg.train.seed}"
+    if group is not None:               # one name for every rank: rank 0's
+        out = group.broadcast(out)
 
     models_path = os.path.abspath(cfg.paths.models_path)
     ckpts_path = os.path.abspath(cfg.paths.checkpoints_path)

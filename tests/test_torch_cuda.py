@@ -1,8 +1,9 @@
 """The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8 and K9
 against their plain PyTorch versions, on the card, and two card train
 steps from one state bitwise equal (batch norm, layer norm, two zoo
-models), and the halo path's forward at two ranks on the card against the
-single-device one.  Every test here is
+models), the halo path's forward at two ranks on the card against the
+single-device one, and the entry points of ``entry.py`` (``entry``, a 2-rank
+``dryrun_multichip``).  Every test here is
 ``cuda``-marked and skips where no GPU is present.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -740,6 +741,42 @@ def test_halo_forward_two_ranks_vs_single_device(cuda, false_edge_frac):
     for r in res:
         assert r["launches"] == {**{k: 0 for k in K.KERNELS},
                                  "k3_edge_stage": 8, "k6_score_gate": 1}
+
+
+# The entry points (gnnome_tpu_torch/entry.py) on the card: entry()'s
+# logits against entry(device="cpu") within the forward tolerance of
+# tests/test_torch_train.py:62, a second card call bitwise equal, 8 K3 + 1
+# K6 float32 launches; a 2-rank dry run (gloo ranks sharing the card, or
+# NCCL with two GPUs) with 16/16/16/2/2 K7/K3/K8/K6/K9 launches per rank.
+def test_entry_on_card_vs_cpu(cuda):
+    import numpy as np
+
+    from gnnome_tpu_torch.entry import entry
+
+    fn_cpu, args_cpu = entry("cpu")
+    ref = fn_cpu(*args_cpu).numpy()
+    fn, args = entry("cuda")
+    K.reset_launch_counts()
+    a = fn(*args)
+    counts = K.launch_counts()
+    b = fn(*args)
+    np.testing.assert_allclose(a.cpu().numpy(), ref, atol=5e-5, rtol=1e-4)
+    assert torch.equal(a, b)
+    assert counts == {**{k: 0 for k in K.KERNELS}, "k3_edge_stage": 8,
+                      "k6_score_gate": 1}
+
+
+def test_dryrun_two_ranks_on_card(cuda):
+    import numpy as np
+
+    from gnnome_tpu_torch.entry import dryrun_multichip
+
+    res = dryrun_multichip(2, "cuda")
+    assert np.isfinite(res["loss"])
+    want = {**{k: 0 for k in K.KERNELS}, "k3_edge_stage": 16,
+            "k6_score_gate": 2, "k7_gate_stats": 16,
+            "k8_train_layer_bwd": 16, "k9_aggregate": 2}
+    assert res["launches_per_rank"] == [want, want]
 
 
 # ----------------------------------------------------------------- probes

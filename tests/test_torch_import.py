@@ -26,6 +26,8 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "torch_eval_profile.py")
     yield os.path.join(ROOT, "scripts", "torch_train_profile.py")
+    yield os.path.join(ROOT, "scripts", "torch_multihost_smoke.py")
+    yield os.path.join(ROOT, "scripts", "torch_scaling_projection.py")
     yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
 
 
