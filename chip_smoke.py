@@ -229,6 +229,21 @@ seconds since the script started):
    ``Group.calls`` there; its times from phase 13's single-device times
    and idle-collective latencies, at NVLink and InfiniBand rates, printed
    beside the times phase 13 measured, each line marked as a model.
+19. ``recorded_runs``: the recorded-run scripts, each ``main`` in a
+   process of its own at a reduced size (``RECORDED_*``), its JSON checked:
+   ``scripts/torch_product_train_run.py --mode card --epochs 1`` (the
+   three-graph masked and clustered dataset; two resumes bitwise equal and
+   equal to an uninterrupted run; per epoch units x 8/8/8/1/1 K7/K3/K8/
+   K6/K9 plus validation units x 0/8/0/1/0, no other kernel);
+   ``scripts/torch_golden_ecoli_run.py --cached`` at full size (AP within
+   1e-4 of the JAX record 0.9992886, probabilities within 1e-5 of the
+   oracle's, the decode of the JAX record: 4 contigs, 5,858,100 bases,
+   NG50 5,385,917; 8 K3 + 1 K6 per forward);
+   ``scripts/torch_train_quality_run.py --stage build parity`` on one
+   graph of a reduced spec (validation loss within 1e-5 and AP within 1e-4
+   of the oracle's each of 2 epochs; 2 steps and 2 evals of launches);
+   ``scripts/torch_config4_route.py`` at 65,536 / 32,768 nodes in clusters
+   of 16,384 (1 and 2 epochs: finite losses, launches per unit as above).
 
 Then one JSON line with every kernel's numbers (``ms`` its device time,
 ``call_ms`` its back-to-back call time, at the widths of its main path;
@@ -240,7 +255,9 @@ are all of them; phase 13's ``cli`` and few-pairs paths per rank; phase
 14's ``cli`` path and its golden and few-pairs forwards per rank; phase
 5b's ``infer_gfa_hifiasm``, ``infer_gfa_raven``, ``run`` and
 ``train_gfa``; phases 15-17's ``entry``, ``dryrun_2`` and ``multihost``,
-rank 0's, every rank's checked equal); ``dtypes`` the element types it runs, and for K1, K2,
+rank 0's, every rank's checked equal; phase 19's ``product_train_card``,
+``golden_card`` (one forward), ``quality_parity``, ``config4_a`` and
+``config4_b``, from the scripts' JSON); ``dtypes`` the element types it runs, and for K1, K2,
 K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
 bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
 run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
@@ -3710,6 +3727,151 @@ def phase_projection(halo_wire: dict) -> None:
          bytes_and_calls_equal_the_groups=True, rows=rows)
 
 
+# phase recorded_runs: each recorded-run script's ``main`` as a subprocess at
+# a reduced size, its JSON checked.  The product run: the card mode's three
+# graphs, 1 epoch, two resumes and an uninterrupted run of 2; the golden
+# run at full size (the tracked fixture); the quality run's parity arm for
+# 2 epochs on a graph of RECORDED_QUALITY_SPEC (seed 100, validation seed
+# 200); the config-4 route at RECORDED_CONFIG4.  Validation loss within
+# RECORDED_PARITY_LOSS and AP within RECORDED_PARITY_AP of the oracle's each
+# epoch (set before any card run from the CPU runs, 1.7e-6 apart at two
+# layers).
+RECORDED_QUALITY_SPEC = ["genome_len=60000", "n_reads=200"]
+RECORDED_CONFIG4 = ["--config4-nodes", "65536", "--both-nodes", "32768",
+                    "--cluster-nodes", "16384", "--epochs-a", "1",
+                    "--epochs-b", "2"]
+RECORDED_PARITY_LOSS, RECORDED_PARITY_AP = 1e-5, 1e-4
+RECORDED_TIMEOUT = 600
+
+
+def run_recorded(script: str, args: list, out: str) -> tuple:
+    """``scripts/<script>.py args --out out`` in a process of its own;
+    its JSON and wall seconds.  Killed on a timeout."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                     f"{script}.py"),
+                        *args, "--out", out], cwd=ROOT, capture_output=True,
+                       text=True, timeout=RECORDED_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"{script} rc {p.returncode}:\n"
+          f"{(p.stdout + p.stderr)[-3000:]}")
+    with open(out) as f:
+        return json.load(f), wall
+
+
+def phase_recorded_runs() -> dict:
+    """The recorded-run scripts at reduced sizes (see RECORDED_*); returns
+    the launches of each path, read from the scripts' JSON (every path
+    runs in its script's process, whose counters start at 0)."""
+    import numpy as np
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    root = os.path.join(WORK, "recorded")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    paths, lines = {}, {}
+
+    def total(rows):
+        return {k: sum(r[k] for r in rows) for k in K.KERNELS}
+
+    prod, wall = run_recorded(
+        "torch_product_train_run", ["--mode", "card", "--epochs", "1",
+                                    "--root", os.path.join(root, "product")],
+        os.path.join(root, "product.json"))
+    check(prod["resume_bit_identical"] is True
+          and prod["resume_equals_uninterrupted"] is True,
+          "product run: resumes bitwise equal, and equal to the "
+          "uninterrupted run")
+    check(prod["launches_match_units"] is True,
+          f"product run: launches per unit {prod['launches_per_epoch']}")
+    paths["product_train_card"] = total(
+        [e["launches"] for e in prod["launches_per_epoch"]])
+    lines["product_train_card"] = {
+        "size": "card mode (3 graphs of 600-1,400 reads), 1 epoch, 2 "
+                "resumes to 2, an uninterrupted run of 2",
+        "units": [[e["train_units"], e["valid_units"]]
+                  for e in prod["launches_per_epoch"]],
+        "peak_mb": prod["peak_mb"], "wall_s": wall,
+        "checkpoint_arrays": prod["checkpoint_arrays"]}
+
+    gold, wall = run_recorded("torch_golden_ecoli_run", ["--cached"],
+                              os.path.join(root, "golden.json"))
+    ap = gold["average_precision"]
+    check(ap["jax_record"] is not None
+          and ap["abs_diff_port_jax_record"] <= AP_TOL,
+          f"golden run: AP {ap['port']} vs the JAX record {ap['jax_record']}")
+    check(gold["edge_prob_parity"]["max_abs_prob_diff"] <= PROB_ATOL,
+          f"golden run: probabilities vs the oracle "
+          f"{gold['edge_prob_parity']}")
+    check(gold["decode_equals_jax_record"] is True,
+          f"golden run: decode {gold['decode']['port']}")
+    fwd = gold["forward"]["launches_per_forward"]
+    check(fwd == expected_launches(k3_edge_stage=8, k6_score_gate=1),
+          f"golden run: launches per forward {fwd}")
+    paths["golden_card"] = fwd
+    lines["golden_card"] = {
+        "size": "full: the tracked fixture, N=9,600, E=257,346",
+        "ap": ap, "edge_prob_parity": gold["edge_prob_parity"],
+        "decode": gold["decode"]["port"],
+        "forward_ms": gold["forward"]["forward_ms_median"],
+        "peak_mb": gold["peak_mb"], "wall_s": wall}
+
+    qual, wall = run_recorded(
+        "torch_train_quality_run",
+        ["--stage", "build", "parity", "--root", os.path.join(root, "q"),
+         "--parity-epochs", "2", "--train-seeds", "100", "--valid-seeds",
+         "200", *sum((["--spec", kv] for kv in RECORDED_QUALITY_SPEC), [])],
+        os.path.join(root, "quality.json"))
+    par = qual["collapse_parity"]
+    for a, b in zip(par["port"], par["torch_oracle"]):
+        check(abs(a["valid_loss"] - b["valid_loss"]) <= RECORDED_PARITY_LOSS
+              and abs(a["ap"] - b["ap"]) <= RECORDED_PARITY_AP,
+              f"quality parity epoch {a['epoch']}: port {a} oracle {b}")
+    check(len(par["port"]) == 2, "quality parity: 2 epochs")
+    q_launch = par["launches"]["all"]
+    check(q_launch == expected_launches(
+        k7_gate_stats=16, k3_edge_stage=32, k8_train_layer_bwd=16,
+        k6_score_gate=4, k9_aggregate=2),
+          f"quality parity: 2 steps and 2 evals {q_launch}")
+    paths["quality_parity"] = q_launch
+    lines["quality_parity"] = {
+        "size": f"TRAIN_SPEC with {' '.join(RECORDED_QUALITY_SPEC)}, "
+                "train seed 100, valid seed 200, 2 epochs",
+        "graphs": par["graphs"], "divergence": par["divergence"],
+        "wall_s": wall}
+
+    c4, wall = run_recorded("torch_config4_route", RECORDED_CONFIG4,
+                            os.path.join(root, "config4.json"))
+    runs = {"config4_a": [c4["A_config4_cluster_route"]],
+            "config4_b": [c4["B_convergence"]["full_graph"],
+                          c4["B_convergence"]["cluster"]]}
+    for name, rs in runs.items():
+        for r in rs:
+            check(r["launches_match_units"] is True
+                  and all(np.isfinite(e["train_loss"]) for e in r["epochs"])
+                  and all(np.isfinite(e.get("eval_loss", 0.0))
+                          for e in r["epochs"]),
+                  f"{name}: finite losses, launches per unit "
+                  f"{[e['launches'] for e in r['epochs']]}")
+        paths[name] = total([e["launches"] for r in rs for e in r["epochs"]]
+                            + [e["eval_launches"] for r in rs
+                               for e in r["epochs"] if "eval_launches" in e])
+    lines["config4"] = {
+        "size": " ".join(RECORDED_CONFIG4),
+        "units_per_epoch": {n: [r["units_per_epoch"] for r in rs]
+                            for n, rs in runs.items()},
+        "gap": c4["B_convergence"][
+            "eval_loss_gap_cluster_minus_full_per_epoch"],
+        "peak_mb": {n: [r["peak_mb"] for r in rs] for n, rs in runs.items()},
+        "wall_s": wall}
+    emit("recorded_runs", **lines, launches=paths,
+         tolerance={"ap": AP_TOL, "prob": PROB_ATOL,
+                    "parity_loss": RECORDED_PARITY_LOSS,
+                    "parity_ap": RECORDED_PARITY_AP})
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3760,6 +3922,7 @@ def main(argv=None) -> int:
     paths["dryrun_2"] = phase_dryrun(dev)
     paths["multihost"] = phase_multihost(dev, multihost_ref)
     phase_projection(halo_wire)
+    paths.update(phase_recorded_runs())
 
     def row(name, src, replaces, main_path, t, errs, width):
         """The summary of kernel ``name``: times ``t`` at ``width`` (the

@@ -36,7 +36,9 @@ beside the package, so an installed package builds into
 ``<site-packages>/build``, which the user may not be able to write; run
 from a checkout then.  The library is rebuilt when a source or a
 header is newer than it.  ``build_library`` builds any such library (the
-probes' ``build/libgnnome_probes.so``, ``gnnome_tpu_torch/probes``).
+probes' ``build/libgnnome_probes.so``, ``gnnome_tpu_torch/probes``) and
+counts the builds it made in this process (``build_library.builds``, by
+library path).
 Nothing is built or imported from the CUDA toolkit when this module is
 imported.
 """
@@ -126,7 +128,11 @@ def build_library(lib_path: str, sources, headers=(),
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib_path)          # atomic for concurrent loaders
+    build_library.builds[lib_path] = build_library.builds.get(lib_path, 0) + 1
     return lib_path
+
+
+build_library.builds = {}              # library path -> builds in this process
 
 
 def build_kernels(force: bool = False) -> str:

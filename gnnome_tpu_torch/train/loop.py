@@ -12,6 +12,9 @@ kernels' plain versions).  Dropout masks come from one ``torch.Generator``
 on that device, seeded with ``train.seed``.
 
 Logging: JSONL (always) + optional wandb (config ``wandb_mode='online'``).
+Each epoch's line holds the units it ran (``train/units``, ``valid/units``)
+and, on one device, the kernel launches it made (``kernel_launches``: all
+and bfloat16, by kernel).
 Checkpoints: flat npz with the model (params/state in the JAX package's
 layout), the Adam moments, the scheduler, the epoch and every RNG state
 (Python, numpy, the dropout generator), so a resumed run continues exactly
@@ -52,6 +55,7 @@ from ..data.dataset import dataset_for
 from ..models.checkpoint import load_pytrees, save_model_weights, save_pytrees
 from ..models.convert import load_model_pytrees, pytrees_from_model
 from ..models.zoo import get_model
+from ..utils.record import launches, launches_since
 from ..utils.seed import set_seed
 from .metrics import average_epoch_metrics, compute_metrics
 from .scheduler import ReduceLROnPlateau
@@ -149,7 +153,9 @@ def _run_epoch(ds, model, opt, pos_weight, cfg, rng_np, generator, device,
                 loss, logits = eval_step(model, ex, pos_weight, cfg)
             metrics_list.append(compute_metrics(
                 logits.cpu().numpy(), ex.labels_host, float(loss)))
-    return average_epoch_metrics(metrics_list) if metrics_list else {}
+    if not metrics_list:
+        return {}
+    return {**average_epoch_metrics(metrics_list), "units": len(metrics_list)}
 
 
 # ------------------------------------------------------------- checkpoints
@@ -338,8 +344,10 @@ def train(train_path: str, valid_path: str, assembler: str,
         _save_ckpt(ckpt_path, epoch, model, opt, scheduler, loss_train_hist,
                    loss_valid_hist, rng_np, generator, group)
 
-    def log_epoch(log):
-        if halo is not None:
+    def log_epoch(log, launched):
+        if halo is None:
+            log["kernel_launches"] = launches_since(launched)
+        else:
             from ..ops.kernels import reset_launch_counts
             from ..parallel.halo import rank_launches
             log["halo_routes"] = dict(halo.routes)
@@ -352,6 +360,7 @@ def train(train_path: str, valid_path: str, assembler: str,
     try:
         for epoch in range(start_epoch, cfg.train.num_epochs):
             t0 = time.time()
+            launched = launches()
             set_learning_rate(opt, scheduler.lr)
             m_train = _run_epoch(ds_train, model, opt, pos_weight, cfg,
                                  rng_np, generator, device, training=True,
@@ -373,7 +382,7 @@ def train(train_path: str, valid_path: str, assembler: str,
                           f"f1={m_train.get('f1', float('nan')):.4f}")
                 scheduler.step(m_train["loss"])
                 save_ckpt(epoch)
-                log_epoch(log)
+                log_epoch(log, launched)
                 print(f"Epoch {epoch} ({time.time()-t0:.1f}s): "
                       f"train loss {m_train['loss']:.6f}")
                 continue
@@ -393,7 +402,7 @@ def train(train_path: str, valid_path: str, assembler: str,
                       f"f1={m_valid.get('f1', float('nan')):.4f}")
             scheduler.step(m_valid["loss"])
             save_ckpt(epoch)
-            log_epoch(log)
+            log_epoch(log, launched)
             print(f"Epoch {epoch} ({time.time()-t0:.1f}s): "
                   f"train {m_train['loss']:.6f} valid {m_valid['loss']:.6f} "
                   f"lr {scheduler.lr:.2e}")

@@ -1,6 +1,7 @@
 """gnnome_tpu_torch stands alone: it imports neither JAX nor any module of
 the JAX package ``gnnome_tpu`` (whose name is a prefix of the port's, so
 every check matches module names exactly)."""
+import glob
 import os
 import re
 import subprocess
@@ -24,11 +25,20 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "scripts", "torch_eval_profile.py")
-    yield os.path.join(ROOT, "scripts", "torch_train_profile.py")
-    yield os.path.join(ROOT, "scripts", "torch_multihost_smoke.py")
-    yield os.path.join(ROOT, "scripts", "torch_scaling_projection.py")
+    yield from sorted(glob.glob(os.path.join(ROOT, "scripts", "torch_*.py")))
     yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
+
+
+def test_scan_covers_every_port_script():
+    """Every ``scripts/torch_*.py`` is scanned, the recorded-run scripts
+    among them: the card's machine has no JAX."""
+    scanned = {os.path.basename(p) for p in _port_sources()}
+    for name in ("torch_product_train_run.py", "torch_golden_ecoli_run.py",
+                 "torch_train_quality_run.py", "torch_config4_route.py",
+                 "torch_decode_profile.py",
+                 "torch_native_sanitize_stress.py",
+                 "torch_eval_profile.py", "torch_multihost_smoke.py"):
+        assert name in scanned, name
 
 
 def test_regex_tells_the_packages_apart():
@@ -84,6 +94,34 @@ def test_import_and_cpu_forward_load_no_jax():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE,
          os.path.join(ROOT, "weights", "weights.npz")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+_SCRIPTS_PROBE = r"""
+import importlib.util, os, sys
+root = sys.argv[1]
+for name in sys.argv[2:]:
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "scripts", name + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "gnnome_tpu" or m.startswith("gnnome_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_recorded_run_scripts_load_no_jax():
+    """The recorded-run scripts and the two host scripts load (with the
+    modules they import at the top) without JAX or the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPTS_PROBE, ROOT,
+         "torch_product_train_run", "torch_golden_ecoli_run",
+         "torch_train_quality_run", "torch_config4_route",
+         "torch_decode_profile", "torch_native_sanitize_stress"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
