@@ -1,0 +1,6 @@
+"""Device operations launched per scoring request in the traced segment."""
+from benchmarks.harness import readers
+
+
+def read(ctx):
+    return readers.launches_per_unit(ctx)
