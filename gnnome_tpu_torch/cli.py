@@ -103,7 +103,8 @@ def cmd_build_graph(args):
 
 @contextmanager
 def _maybe_trace(trace_dir: str | None):
-    """torch.profiler trace (CPU + CUDA activity) into ``trace_dir``."""
+    """torch.profiler trace (CPU + CUDA activity, and the port's spans,
+    ``utils.timing``) into ``trace_dir``."""
     if not trace_dir:
         yield
         return
@@ -112,11 +113,13 @@ def _maybe_trace(trace_dir: str | None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from .utils.timing import trace_only
+
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, trace_only():
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
@@ -259,7 +262,8 @@ def main(argv=None):
     p.add_argument("--out", required=True)
     p.add_argument("--model", default="weights/weights.npz")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace to DIR/trace.json")
+                   help="write a torch.profiler trace (device operations "
+                   "and the port's spans) to DIR/trace.json")
     _add_common(p)
     p.set_defaults(fn=cmd_infer)
 

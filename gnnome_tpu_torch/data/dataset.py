@@ -133,7 +133,7 @@ class AssemblyGraphDataset:
         ``training``), compute the overlap similarities and write graph
         ``idx``; returns the seconds of each stage (``parse``,
         ``similarities``, ``save``)."""
-        timer = Timer()
+        timer = Timer("build.")
         with timer.phase("parse"):
             parsed = parse_gfa(gfa_path, reads_path=reads_path,
                                training=training)

@@ -39,7 +39,7 @@ from .models.convert import load_model_pytrees
 from .models.zoo import SYM_NAMES, get_model, processor_graph
 from .ops import DeviceGraph
 from .utils.seed import set_seed
-from .utils.timing import Timer
+from .utils.timing import Timer, span
 
 
 def load_model(params, state, cfg: Config, device) -> torch.nn.Module:
@@ -55,18 +55,27 @@ def score_model(model: torch.nn.Module, graph, cfg: Config,
                 device) -> np.ndarray:
     """Edge logits [E] (float32, host edge order) of ``graph`` under
     ``model``: the SymGatedGCN at ``cfg.compute.dtype``; a zoo model (in
-    float32) on its transformed graph."""
-    g = DeviceGraph.from_graph(graph, device)
-    x = torch.as_tensor(node_features(graph), device=device)
-    e = torch.as_tensor(edge_features(graph, cfg.data.use_similarities),
-                        device=device)
-    g_proc = processor_graph(cfg.model, graph.src, graph.dst,
-                             graph.num_nodes, device)
-    if cfg.model.model in SYM_NAMES:
-        logits = model(g, x, e, dtype=compute_dtype(cfg))
-    else:
-        logits = model(*((g, x, e) if g_proc is None else (g, x, e, g_proc)))
-    return logits.reshape(-1).cpu().numpy()
+    float32) on its transformed graph.  Spans (``utils.timing``):
+    ``score.request`` around the call; ``score.graph_build``,
+    ``score.features`` and ``score.copy`` inside it, beside the model's
+    own."""
+    with span("score.request"):
+        with span("score.graph_build"):
+            g = DeviceGraph.from_graph(graph, device)
+            g_proc = processor_graph(cfg.model, graph.src, graph.dst,
+                                     graph.num_nodes, device)
+        with span("score.features"):
+            x = torch.as_tensor(node_features(graph), device=device)
+            e = torch.as_tensor(edge_features(graph,
+                                              cfg.data.use_similarities),
+                                device=device)
+        if cfg.model.model in SYM_NAMES:
+            logits = model(g, x, e, dtype=compute_dtype(cfg))
+        else:
+            logits = model(*((g, x, e) if g_proc is None
+                             else (g, x, e, g_proc)))
+        with span("score.copy"):
+            return logits.reshape(-1).cpu().numpy()
 
 
 def rank_scores(graph, model, cfg: Config, group):
@@ -152,7 +161,7 @@ def run_inference(data_path: str, model_path: str, assembler: str,
     device = (group.device if group is not None
               else resolve_device(cfg.compute.device))
     rng_np, _ = set_seed(cfg.train.seed)
-    timer = Timer()
+    timer = Timer("infer.")
 
     # cache=False: each graph is visited exactly once here
     ds = dataset_for(assembler, data_path, threads=cfg.decode.num_threads,

@@ -87,6 +87,7 @@ from ..ops.graph_tensors import DeviceGraph
 from ..ops.message import (blocks_linear, eval_edge_stage, gate_gather,
                            gated_mean_pair, gather_uv, score_gate,
                            train_edge_stage)
+from ..utils.timing import span
 from .nn import dropout, mlp2
 from .norm import (apply_norm, batch_norm_dual, batch_norm_eval,
                    batch_norm_rows, batch_norm_train, update_running_stats)
@@ -313,7 +314,8 @@ class SymGatedGCN(nn.Module):
     built in eval mode; ``.train()`` selects the training forward, whose
     dropout (rate ``dropout``) needs a ``generator``.  ``normalization`` is
     ``batch``, ``layer`` or ``none``; ``dtype`` (every forward) the compute
-    dtype, float32 or bfloat16."""
+    dtype, float32 or bfloat16.  Each pass (a ``forward``, or a batch-norm
+    ``forward_dual``) is the span ``model.forward`` (``utils.timing``)."""
 
     kind = "sym_gatedgcn"
 
@@ -372,15 +374,17 @@ class SymGatedGCN(nn.Module):
         drop = self.dropout if self.training else 0.0
         if drop > 0.0 and generator is None:
             raise ValueError("training-mode dropout needs a torch.Generator")
-        # the encoders in float32, their outputs cast (sym_gated_gcn.py:601-602)
-        h = mlp2(self.linear1_node, self.linear2_node, x).to(dtype)
-        e = mlp2(self.linear1_edge, self.linear2_edge, e).to(dtype)
-        if not slot_io:
-            e = g.edges_to_slots(e)
-        for conv in self.gnn.convs:
-            h, e = conv(g, h, e, flip, drop, generator, dtype)
-        logits = self.predictor(g, h, e, flip, dtype).float()
-        return logits if slot_io else g.slots_to_edges(logits)
+        with span("model.forward"):
+            # the encoders in float32, their outputs cast
+            # (sym_gated_gcn.py:601-602)
+            h = mlp2(self.linear1_node, self.linear2_node, x).to(dtype)
+            e = mlp2(self.linear1_edge, self.linear2_edge, e).to(dtype)
+            if not slot_io:
+                e = g.edges_to_slots(e)
+            for conv in self.gnn.convs:
+                h, e = conv(g, h, e, flip, drop, generator, dtype)
+            logits = self.predictor(g, h, e, flip, dtype).float()
+            return logits if slot_io else g.slots_to_edges(logits)
 
     def forward_pair(self, g: DeviceGraph, x, x_rev, e, generator=None,
                      slot_io: bool = False,
@@ -412,17 +416,19 @@ class SymGatedGCN(nn.Module):
         drop = self.dropout if self.training else 0.0
         if drop > 0.0 and generator is None:
             raise ValueError("training-mode dropout needs a torch.Generator")
-        # the encoders in float32, their outputs cast (sym_gated_gcn.py:471-474)
-        h = torch.cat([mlp2(self.linear1_node, self.linear2_node, x),
-                       mlp2(self.linear1_node, self.linear2_node, x_rev)],
-                      1).to(dtype)
-        e = mlp2(self.linear1_edge, self.linear2_edge, e).to(dtype)
-        if not slot_io:
-            e = g.edges_to_slots(e)
-        e = torch.cat([e, e], 1)
-        for conv in self.gnn.convs:
-            h, e = conv.forward_dual(g, h, e, drop, generator)
-        logits = self.predictor.forward_dual(g, h, e).float()
-        if not slot_io:
-            logits = g.slots_to_edges(logits)
-        return logits[:, :1], logits[:, 1:]
+        with span("model.forward"):
+            # the encoders in float32, their outputs cast
+            # (sym_gated_gcn.py:471-474)
+            h = torch.cat([mlp2(self.linear1_node, self.linear2_node, x),
+                           mlp2(self.linear1_node, self.linear2_node,
+                                x_rev)], 1).to(dtype)
+            e = mlp2(self.linear1_edge, self.linear2_edge, e).to(dtype)
+            if not slot_io:
+                e = g.edges_to_slots(e)
+            e = torch.cat([e, e], 1)
+            for conv in self.gnn.convs:
+                h, e = conv.forward_dual(g, h, e, drop, generator)
+            logits = self.predictor.forward_dual(g, h, e).float()
+            if not slot_io:
+                logits = g.slots_to_edges(logits)
+            return logits[:, :1], logits[:, 1:]

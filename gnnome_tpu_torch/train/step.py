@@ -32,6 +32,7 @@ import torch
 from ..config import Config, compute_dtype
 from ..models.zoo import SYM_NAMES, processor_graph
 from ..ops.graph_tensors import DeviceGraph
+from ..utils.timing import span
 from .loss import bce_with_logits, symmetry_loss
 
 
@@ -172,13 +173,19 @@ def train_step(model, opt, ex: TrainExample, pos_weight: float, cfg: Config,
                generator):
     """One Adam step on one example (step.py:249-302): training-mode
     forward(s), loss, backward, update.  Returns ``(loss, logits)``
-    as device tensors: no host synchronisation happens here."""
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    loss, logits = _loss(model, ex, pos_weight, cfg, generator)
-    loss.backward()
-    opt.step()
-    return loss.detach(), logits.detach()
+    as device tensors: no host synchronisation happens here.  Spans
+    (``utils.timing``): ``train.step`` around it, ``train.forward``,
+    ``train.backward`` and ``train.optimizer`` inside."""
+    with span("train.step"):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            loss, logits = _loss(model, ex, pos_weight, cfg, generator)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            opt.step()
+        return loss.detach(), logits.detach()
 
 
 @torch.no_grad()

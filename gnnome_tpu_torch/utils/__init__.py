@@ -6,4 +6,4 @@ from .fastx import (  # noqa: F401
     FastxRecord,
 )
 from .seed import set_seed  # noqa: F401
-from .timing import Timer, timedelta_to_str  # noqa: F401
+from .timing import Timer, span  # noqa: F401

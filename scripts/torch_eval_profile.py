@@ -50,6 +50,7 @@ def main() -> int:
     from gnnome_tpu_torch.models import (SymGatedGCN, edge_features,
                                          load_model_weights, node_features)
     from gnnome_tpu_torch.ops import DeviceGraph
+    from gnnome_tpu_torch.utils.timing import trace_only
 
     dev = resolve_device("cuda")
     graph = AssemblyGraph.load(os.path.join(ROOT, "tests", "fixtures",
@@ -79,7 +80,8 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                trace_only():
             t0 = time.perf_counter()
             for _ in range(args.iters):
                 model(g, x, e, dtype=dtype)
@@ -91,7 +93,10 @@ def main() -> int:
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        # user-annotated ranges (the span ``model.forward``) span kernels
+        # that are counted on their own
+        if (dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             kernels[ev.key] = {"us_per_forward": dev_us / args.iters,
                                "calls_per_forward": ev.count / args.iters}
             busy_us += dev_us

@@ -56,6 +56,7 @@ def main() -> int:
     from gnnome_tpu_torch.models import SymGatedGCN, load_model_weights
     from gnnome_tpu_torch.train.step import (host_units, make_example,
                                              make_optimizer, train_step)
+    from gnnome_tpu_torch.utils.timing import trace_only
 
     dev = resolve_device("cuda")
     graph = AssemblyGraph.load(os.path.join(ROOT, "tests", "fixtures",
@@ -92,7 +93,7 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, trace_only():
         t0 = time.perf_counter()
         for _ in range(args.iters):
             step()
