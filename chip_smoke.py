@@ -44,8 +44,14 @@ seconds since the script started):
    an odd width on column slices, K6 on column slices of wider arrays
    (row-strided), K9 on column slices at H = 256 and 20 (float4 rows and
    one float per lane); each against its plain version and bitwise
-   reproducible.  Every wrapper at E = 0 (a graph of 5 nodes and no edges,
-   float32 and bf16): its plain version's outputs, no launch.
+   reproducible.  The batch-norm edge adjoint (A below; a stream over
+   [E, w], no graph) at w = 128 and 64, at the golden graph's edge count
+   and at the ~2.41M edges of the benchmark cell train-b64-g524k: bit-equal
+   to its plain version, timed beside its byte bound, the plain version
+   and ``torch.add`` of its two inputs (the same three streams); its
+   one-element path at w = 36 and on rows off a 16-byte boundary checked.
+   Every wrapper at E = 0 (a graph of 5 nodes and no edges, float32 and
+   bf16): its plain version's outputs, no launch.
 5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
    launch counter set to 0 just before it); the longest contig must be an
@@ -56,8 +62,8 @@ seconds since the script started):
    (exactly 8 K3 + 1 K6, an exact contig); ``cli run`` with a stub
    ``hifiasm`` that copies the prepared GFA (8 K3 + 1 K6, the FASTA of
    build-graph + infer byte for byte); ``cli build-graph --training`` and
-   one ``cli train --overfit`` epoch on the card (8/8/8/1/1
-   K7/K3/K8/K6/K9 per unit); a host-timing build at the golden graph's
+   one ``cli train --overfit`` epoch on the card (8/8/8/8/1/1
+   K7/K3/K8/A/K6/K9 per unit); a host-timing build at the golden graph's
    node count (4,800 reads, 9,600 nodes, 600 kb at ~7x) in a process of
    its own: the seconds of build-graph's stages (parse, similarities,
    save) and its peak RSS.
@@ -69,7 +75,7 @@ seconds since the script started):
    (``forward_dual``), held also against the two sequential passes
    (``forward_pair``) on the card; on the whole golden graph as one unit,
    two steps from one state bitwise equal (loss, logits, gradients,
-   parameters after Adam), exactly 8 K7, 8 K3, 8 K8, 1 K6 and 1 K9
+   parameters after Adam), exactly 8 K7, 8 K3, 8 K8, 8 A, 1 K6 and 1 K9
    launches per step (layer norm: 16 K1 and 34 K2), no host
    synchronisation inside a step (``torch.cuda.set_sync_debug_mode
    ("error")``), the step time and peak memory.
@@ -99,7 +105,8 @@ seconds since the script started):
    K7, K8 and K9 against their bf16 plain versions, timed beside their
    bf16 bounds at the golden shapes (d = H = 64, both flips; the dual
    width 128), and checked at d = 192, on column slices and odd row
-   strides (K6 at H = 20, K9 at 256 and 20), bitwise reproducible;
+   strides (K6 at H = 20, K9 at 256 and 20), bitwise reproducible, and
+   A as in phase 4;
    ``model_bf16`` (after 5): the golden graph in bf16, card vs the CPU's
    bf16 run (logit cosine, probabilities, AP), two card runs bitwise
    equal, 8 K3 + 1 K6 per forward, AP within 1e-4 of the JAX package's
@@ -108,7 +115,7 @@ seconds since the script started):
    dual step in bf16, against the CPU's bf16 step to the JAX package's
    bf16 bounds; ``cli_bf16`` (after 8): ``cli infer --set compute.dtype=
    bfloat16`` on phase 5's dataset (exact contig) and a bf16 overfit run
-   that must learn (12 epochs of 8/8/8/1/1 K7/K3/K8/K6/K9, every launch
+   that must learn (12 epochs of 8/8/8/8/1/1 K7/K3/K8/A/K6/K9, every launch
    bf16).
 12. The bfloat16 mode of the layer-norm and norm-free models, through the
    bf16 instantiations of K1 and K2, placed as phase 11's: in
@@ -179,12 +186,12 @@ seconds since the script started):
    rank, a bf16 step at P = 2; the golden graph at P = 2 through the
    overflow-uncapped route (AP within 1e-4 of the JAX figure, a step);
    ``random_rc_bench_graph(1,048,576, 8.0)``'s eval at P = 2 and 4; per
-   rank 8 K3 + 1 K6 per forward and 16/16/16/2/2 K7/K3/K8/K6/K9 per step;
+   rank 8 K3 + 1 K6 per forward and 16/16/16/16/2/2 K7/K3/K8/A/K6/K9 per step;
    the route, K, R, extended rows, edges, bytes and times per rank, the
    time of an idle collective.  At P = 4 also a graph of 3 RC pairs (one
    rank's block empty): eval logits within 1e-4 + 1e-4 |x| of the
    single-device card forward, one step as above, and per rank 8 K3 + 1
-   K6 per forward and 16/16/16/2/2 per step where its block holds edges,
+   K6 per forward and 16/16/16/16/2/2 per step where its block holds edges,
    no launch where it holds none.  Then ``cli infer`` and ``cli train`` with
    ``--set compute.mesh=2`` against their single-device runs (the same
    contigs; the same epoch losses within 1e-4, one checkpoint), every
@@ -215,13 +222,13 @@ seconds since the script started):
    wall time and a warm call's time.
 16. ``dryrun``: ``dryrun_multichip(2)`` on the card (gloo ranks sharing
    it): a finite loss, the parameters after Adam bitwise equal on every
-   rank, 16/16/16/2/2 K7/K3/K8/K6/K9 per rank, JAX's line printed.
+   rank, 16/16/16/16/2/2 K7/K3/K8/A/K6/K9 per rank, JAX's line printed.
 17. ``multihost``: two ``torch.distributed.run`` launchers of one rank
    each (127.0.0.1, a free port; the card shared over gloo) run
    scripts/torch_multihost_smoke.py's step on ``random_bench_graph(16,384,
    6.0)``: one loss, bitwise that of the same step on ``spawn``'s two
    ranks (run in phase 13's group of 2), and the same launches per rank
-   (16/16/16/2/2).
+   (16/16/16/16/2/2).
 18. ``projection``: the halo wire-cost model
    (``gnnome_tpu_torch/parallel/projection.py``), host only: its bytes and
    calls per forward (with the logits' gather) and per step at P = 2 and 4
@@ -233,7 +240,7 @@ seconds since the script started):
    process of its own at a reduced size (``RECORDED_*``), its JSON checked:
    ``scripts/torch_product_train_run.py --mode card --epochs 1`` (the
    three-graph masked and clustered dataset; two resumes bitwise equal and
-   equal to an uninterrupted run; per epoch units x 8/8/8/1/1 K7/K3/K8/
+   equal to an uninterrupted run; per epoch units x 8/8/8/8/1/1 K7/K3/K8/A/
    K6/K9 plus validation units x 0/8/0/1/0, no other kernel);
    ``scripts/torch_golden_ecoli_run.py --cached`` at full size (AP within
    1e-4 of the JAX record 0.9992886, probabilities within 1e-5 of the
@@ -372,10 +379,11 @@ OVERFIT_GRAPH = dict(n_reads=120, genome_len=10000, read_len=400, seed=12,
                      with_sequences=True)
 OVERFIT_LOSS_DROP, OVERFIT_MIN_AP = 0.9, 0.75
 # the batch-norm symmetry-loss step runs both passes as one dual-width pass
-# (forward_dual): per layer one K7 and one K3, their K8; one K6, its K9
+# (forward_dual): per layer one K7 and one K3, their K8 and batch-norm edge
+# adjoint; one K6, its K9
 TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 8, "k6_score_gate": 1,
                        "k7_gate_stats": 8, "k8_train_layer_bwd": 8,
-                       "k9_aggregate": 1}
+                       "bn_edge_adjoint": 8, "k9_aggregate": 1}
 # the layer-norm and norm-free model runs K1 and K2 only: per forward one K1
 # and one K2 (the gated means) per layer; per symmetry-loss step two
 # forwards and their backwards (K2 for each K1, two row gathers for each
@@ -419,6 +427,11 @@ ZOO_STEP_SIDE_SUMS = {"gatedgcn": 24, "gcn": 16, "gat": 48, "sage": 16}
 GFA_DIALECTS = ("hifiasm", "raven")
 GFA_TIMING_BUILD = dict(n_reads=4800, genome_len=600_000, read_len=900,
                         seed=1)
+# the batch-norm edge adjoint is timed at the golden graph's edge count and
+# at the ~2.41M edges of the benchmark cell train-b64-g524k, whose dual
+# pass runs it at w = 128; its one-element path checked at w = 36
+BN_ADJOINT_CELL_ROWS = 2_410_000
+BN_ADJOINT_ODD_W = 36
 # kernels at E = 0 (a halo rank whose block holds no edge): a graph of
 # NO_EDGE_N nodes, d = H = 64; each wrapper must return its plain version's
 # empty edge rows and zero sums and statistics without a launch
@@ -595,6 +608,91 @@ def side_sum_cost(N: int, E: int, D: int, permuted: bool):
     slot permutation; write [N, D]; one add per (edge, feature)."""
     return (F4 * (E * D + N * D) + I4 * ((N + 1) + (E if permuted else 0)),
             1.0 * E * D, 0.0)
+
+
+def bn_adjoint_cost(E: int, w: int, es: int = F4):
+    """The batch-norm edge adjoint: read x and d_eo, write d_b3e ([E, w]
+    each), read the [4, w] rows and the float32 [3, w] ones; 9 operations
+    an element (the affine 4, the mask 1, two products and two sums)."""
+    return es * (3 * E * w + 4 * w) + F4 * 3 * w, 9.0 * E * w, 0.0
+
+
+def adjoint_inputs(E: int, w: int, dt, randn, rand):
+    """x, d_eo [E, w], the rows bn [4, w] and sc [3, w] of the batch-norm
+    edge adjoint; x drawn about the mean so that y straddles 0."""
+    import torch
+
+    mean, inv = randn(w) * 0.3, rand(w) + 0.5
+    gamma, beta = rand(w) + 0.5, randn(w) * 0.1
+    if dt == torch.bfloat16:
+        scale = gamma * inv
+        bn = torch.stack([torch.zeros_like(scale), torch.ones_like(scale),
+                          scale, beta - mean * scale]).to(dt)
+    else:
+        bn = torch.stack([mean, inv, gamma, beta])
+    x = (randn(E, w) / inv + mean).to(dt)
+    sc = torch.stack([gamma * inv, randn(w) * 1e-4, randn(w) * 1e-4])
+    return x, randn(E, w).to(dt), bn, sc
+
+
+def bn_adjoint_times(dev, seed: int, dt, golden_edges: int) -> dict:
+    """The batch-norm edge adjoint in ``dt`` at w = 128 and 64, at the
+    golden graph's edge count and at BN_ADJOINT_CELL_ROWS: bit-equal to its
+    plain version and bitwise reproducible, timed beside its bound, the
+    plain version and ``torch.add`` of x and d_eo (``add_ms``); the
+    one-element path (w = 36; rows one element off a 16-byte boundary)
+    checked, not timed."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
+    def checked(args, what):
+        got = K.bn_edge_adjoint(*args)
+        check(torch.equal(got, K.bn_edge_adjoint_plain(*args)),
+              f"bn edge adjoint {what}: bit-equal to its plain version")
+        check(torch.equal(got, K.bn_edge_adjoint(*args)),
+              f"bn edge adjoint {what}: reproducible")
+
+    es = BF2 if dt == torch.bfloat16 else F4
+    out = {"dtype": str(dt).split(".")[1]}
+    for E, size in ((golden_edges, "golden"), (BN_ADJOINT_CELL_ROWS, "cell")):
+        for w in (DUAL_D, 64):
+            args = adjoint_inputs(E, w, dt, randn, rand)
+            checked(args, f"{dt} E={E} w={w}")
+            nbytes, *ops = bn_adjoint_cost(E, w, es)
+            b_ms, b_by = bound(nbytes, *ops)
+            t = kernel_times(lambda: K.bn_edge_adjoint(*args))
+            o = torch.empty_like(args[0])
+            out[f"{size} w={w}"] = {
+                "rows": E, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes, **t, "share_of_bound": b_ms / t["device_ms"],
+                "achieved_gbps": nbytes / t["device_ms"] / 1e6,
+                "plain_ms": cuda_ms(lambda: K.bn_edge_adjoint_plain(*args)),
+                "add_ms": cuda_ms(lambda: torch.add(args[0], args[1],
+                                                    out=o), queued=True)}
+            del args, o
+    x, d_eo, bn, sc = adjoint_inputs(golden_edges, BN_ADJOINT_ODD_W, dt,
+                                     randn, rand)
+    checked((x, d_eo, bn, sc), f"{dt} w={BN_ADJOINT_ODD_W}")
+    x, d_eo, bn, sc = adjoint_inputs(golden_edges, 64, dt, randn, rand)
+    shifted = [torch.empty(t.numel() + 1, dtype=dt, device=dev)[1:]
+               .view(t.shape).copy_(t) for t in (x, d_eo)]
+    check(shifted[0].data_ptr() % 16 != 0, "rows off a 16-byte boundary")
+    checked((*shifted, bn, sc), f"{dt} w=64 unaligned rows")
+    torch.cuda.empty_cache()
+    out.update(odd_width=BN_ADJOINT_ODD_W, bitwise_reproducible=True,
+               tolerance={"atol": 0.0},
+               add_call="torch.add(x, d_eo, out=...): the same three "
+                        "[E, w] streams, PyTorch's vectorised kernel")
+    return out
 
 
 def golden_subgraph(g):
@@ -1091,7 +1189,9 @@ def phase_kernels_bf16(seed: int, dev):
                                      bf16=True),
            "dual": width_kernel_times(g, DUAL_D, randn, rand, bf16=True),
            "wide": bf16_wide_checks(g, randn, rand),
-           **unfused_kernels(g, randn, bf16=True)}
+           **unfused_kernels(g, randn, bf16=True),
+           "bn_edge_adjoint": bn_adjoint_times(dev, seed, torch.bfloat16,
+                                               g.n_edges)}
     emit("kernels_bf16", graph={"nodes": g.n_nodes, "edges": g.n_edges},
          seed=seed, **out,
          tolerance={"edges": "one bf16 spacing (2^-7 of the value); K1, "
@@ -1496,6 +1596,8 @@ def no_edge_checks(dev, d: int = 64) -> dict:
                                     edges(d), edges(d), bn)),
             "k9_aggregate": ((u, v, v_csr, u_csr, edges(d)),
                              (u, v, edges(d), n)),
+            "bn_edge_adjoint": ((edges(d), edges(d), bn,
+                                 torch.zeros(3, d, device=dev)), None),
         }
         if dt == torch.float32:
             calls["k2_side_sum"] = ((u, u_csr, edges(d)), (u, edges(d), n))
@@ -1753,6 +1855,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
         wide[f"flip={flip}"] = r
     wide["bitwise_reproducible"] = True
     out["wide"] = wide
+    out["bn_edge_adjoint"] = bn_adjoint_times(dev, seed, torch.float32, E)
     out["no_edges"] = {"nodes": NO_EDGE_N,
                        "max_abs_diff": no_edge_checks(dev)}
     emit("kernels", graph={"nodes": N, "edges": E}, d=d, H=H, seed=seed,
@@ -2117,7 +2220,7 @@ def phase_gfa_route():
     each (host) and ``cli infer`` on the card (8 K3 + 1 K6, an exact
     contig); ``cli run`` with a stub hifiasm (the FASTA of build-graph +
     infer, byte for byte); ``cli build-graph --training`` then one ``cli
-    train --overfit`` epoch on the card (8/8/8/1/1 K7/K3/K8/K6/K9 per
+    train --overfit`` epoch on the card (8/8/8/8/1/1 K7/K3/K8/A/K6/K9 per
     unit); the host-timing build at the golden graph's node count in a
     process of its own (stage seconds, peak RSS).  Counters are set to 0
     just before each card path.  Returns those paths' launches."""
@@ -2199,7 +2302,8 @@ def phase_gfa_route():
     counts = K.launch_counts()
     units = counts["k9_aggregate"]
     check(units >= 1 and counts["k7_gate_stats"] == 8 * units
-          and counts["k8_train_layer_bwd"] == 8 * units,
+          and counts["k8_train_layer_bwd"] == 8 * units
+          == counts["bn_edge_adjoint"],
           f"gfa train launches {counts}")
     check(counts == expected_launches(**{k: units * n for k, n in
                                          TRAIN_STEP_LAUNCHES.items()}),
@@ -2600,11 +2704,13 @@ def phase_train():
     model_path = cli.main([*common, "--set", "train.num_epochs=1"])
     wall_s = time.perf_counter() - t0
     counts = K.launch_counts()
-    # U training units (8 K7, 8 K3, 8 K8, 1 K6, 1 K9 each) and V
-    # validation units (8 K3, 1 K6 each: the eval step's dual pass too)
+    # U training units (8 K7, 8 K3, 8 K8, 8 edge adjoints, 1 K6, 1 K9
+    # each) and V validation units (8 K3, 1 K6 each: the eval step's dual
+    # pass too)
     units = counts["k9_aggregate"]
     check(units > 1 and counts["k7_gate_stats"] == 8 * units
-          and counts["k8_train_layer_bwd"] == 8 * units,
+          and counts["k8_train_layer_bwd"] == 8 * units
+          == counts["bn_edge_adjoint"],
           f"training launches {counts}")
     v_units = (counts["k3_edge_stage"] - 8 * units) // 8
     check(v_units > 1 and counts["k3_edge_stage"] == 8 * (units + v_units)
@@ -2694,8 +2800,8 @@ def phase_cli_bf16():
     counters set to 0 just before it: ``cli infer --set compute.dtype=
     bfloat16`` with the shipped weights on phase 5's synthetic dataset
     (exact contig, 8 K3 + 1 K6), then a bf16 overfit run (``cli train
-    --overfit``, 12 epochs of 8/8/8/1/1 K7/K3/K8/K6/K9), which must learn as
-    phase 7's run must."""
+    --overfit``, 12 epochs of 8/8/8/8/1/1 K7/K3/K8/A/K6/K9), which must
+    learn as phase 7's run must."""
     from gnnome_tpu_torch import cli
     from gnnome_tpu_torch.ops import kernels as K
 
@@ -2837,7 +2943,7 @@ def phase_cli_layer():
 # the golden AP within AP_TOL of the JAX figure; `cli train` with
 # compute.mesh=2 logs the single-device epoch's losses within 1e-4
 # relative, `cli infer` writes the single-device contigs.  Per rank: 8 K3
-# and 1 K6 per eval forward, 16/16/16/2/2 K7/K3/K8/K6/K9 per train step
+# and 1 K6 per eval forward, 16/16/16/16/2/2 K7/K3/K8/A/K6/K9 per train step
 # (two directional passes).
 HALO_BENCH = dict(num_nodes=65_536, avg_degree=6.0, seed=0)
 HALO_BIG = dict(num_nodes=1_048_576, avg_degree=8.0, seed=0)
@@ -2846,7 +2952,7 @@ HALO_TRAIN_LOSS_RTOL = 1e-4
 HALO_FORWARD_LAUNCHES = {"k3_edge_stage": 8, "k6_score_gate": 1}
 HALO_STEP_LAUNCHES = {"k3_edge_stage": 16, "k6_score_gate": 2,
                       "k7_gate_stats": 16, "k8_train_layer_bwd": 16,
-                      "k9_aggregate": 2}
+                      "bn_edge_adjoint": 16, "k9_aggregate": 2}
 HALO_REPS, HALO_STEP_REPS = 3, 2
 
 
@@ -3024,7 +3130,7 @@ def few_pairs_checks(fwd, step, ref_lo, ref_step, what: str) -> dict:
     the step as ``halo_step_close`` holds it (parameters after Adam
     bitwise equal on every rank); a rank whose block holds no edge
     launches nothing, the others 8 K3 + 1 K6 per forward and
-    16/16/16/2/2 K7/K3/K8/K6/K9 per step."""
+    16/16/16/16/2/2 K7/K3/K8/A/K6/K9 per step."""
     edges = [r["n_edges"] for r in fwd]
     check(0 in edges and sum(edges) == ref_lo.shape[0],
           f"{what} few pairs: edges per rank {edges}")
@@ -3269,7 +3375,8 @@ def phase_halo(dev, p4_jobs=(), p2_jobs=()):
     units = train_launches[0]["k9_aggregate"] // 2
     check(units >= 1 and all(
         c["k7_gate_stats"] == 16 * units == c["k8_train_layer_bwd"]
-        and c["k3_edge_stage"] > 16 * units and c["k6_score_gate"] > 2 * units
+        == c["bn_edge_adjoint"] and c["k3_edge_stage"] > 16 * units
+        and c["k6_score_gate"] > 2 * units
         for c in train_launches), f"cli train launches {train_launches}")
     emit("halo", cli_infer={"contigs": len(fasta["mesh"]),
                             "launches_per_rank": infer_launches},
@@ -3516,8 +3623,8 @@ def phase_sharded(dev, layer_run: dict, few_res: list) -> dict:
 # any card run: entry()'s logits within LOGIT_ATOL + LOGIT_RTOL·|x| of
 # entry(device="cpu"), a second card call bitwise equal, 8 K3 + 1 K6 float32
 # launches; the dry run (2 ranks sharing the card over gloo) a finite loss,
-# parameters bitwise equal on every rank, 16/16/16/2/2 K7/K3/K8/K6/K9 per
-# rank; two launchers of one rank each (127.0.0.1, a free port, the card
+# parameters bitwise equal on every rank, 16/16/16/16/2/2 K7/K3/K8/A/K6/K9
+# per rank; two launchers of one rank each (127.0.0.1, a free port, the card
 # shared over gloo) on random_bench_graph(16,384, 6.0): one loss, bitwise
 # spawn's at 2 ranks on the same unit, the same launches per rank; the
 # model's bytes and calls per forward and step at P = 2 and 4 equal to
@@ -3832,7 +3939,7 @@ def phase_recorded_runs() -> dict:
     q_launch = par["launches"]["all"]
     check(q_launch == expected_launches(
         k7_gate_stats=16, k3_edge_stage=32, k8_train_layer_bwd=16,
-        k6_score_gate=4, k9_aggregate=2),
+        bn_edge_adjoint=16, k6_score_gate=4, k9_aggregate=2),
           f"quality parity: 2 steps and 2 evals {q_launch}")
     paths["quality_parity"] = q_launch
     lines["quality_parity"] = {
@@ -4025,6 +4132,30 @@ def main(argv=None) -> int:
                            flips(k[name]) + [t["max_abs_diff"]], DUAL_D),
                      "dtypes": ["float32", "bfloat16"],
                      "bfloat16": bf16_row(name)})
+    # the batch-norm edge adjoint replaces no pallas_call but the jnp chain
+    # after JAX's K8 (message.py:549-591); at the dual width, and at the
+    # benchmark cell's edge count
+    def adjoint_times(r) -> dict:
+        t, cell = r[f"golden w={DUAL_D}"], r[f"cell w={DUAL_D}"]
+        return {"ms": t["device_ms"], "call_ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "add_ms": t["add_ms"], "cell_rows": cell["rows"],
+                "cell_ms": cell["device_ms"],
+                "cell_bound_ms": cell["bound_ms"]}
+
+    rows.append({"name": "bn_edge_adjoint", "route": "cuda",
+                 "source": "gnnome_tpu_torch/csrc/bn_edge_adjoint.cu",
+                 "replaces": "gnnome_tpu/ops/message.py:549-591 (jnp)",
+                 "launches": paths["train"]["bn_edge_adjoint"],
+                 "launches_by_path": {p: c["bn_edge_adjoint"]
+                                      for p, c in paths.items()},
+                 "max_abs_err": 0.0, "width": DUAL_D,
+                 **adjoint_times(k["bn_edge_adjoint"]),
+                 "dtypes": ["float32", "bfloat16"],
+                 "bfloat16": {
+                     "launches": paths["train_bf16"]["bn_edge_adjoint"],
+                     **adjoint_times(kb["bn_edge_adjoint"])}})
     # the probes lie on no path: their launches since the probes phase
     # (every path after it, those this process runs), which must be none
     probe_launches = probes.launch_counts()

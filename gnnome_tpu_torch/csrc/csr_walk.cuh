@@ -103,12 +103,17 @@ __device__ __forceinline__ Vec<V> vld(const S* p) {
     return r;
 }
 
-// vld for data read once (an edge stream): cached in L2 only, evict first
+// vld for data read once (an edge stream): cached in L2 only, evict first.
+// bf16 also at V = 8: one 16-byte word (csrc/bn_edge_adjoint.cu)
 template <int V, class S>
 __device__ __forceinline__ Vec<V> vld_stream(const S* p) {
     Vec<V> r;
     if constexpr (kBf16<S> && V == 4) {
         unpack4(__ldcs(reinterpret_cast<const uint2*>(p)), r.a);
+    } else if constexpr (kBf16<S> && V == 8) {
+        const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p));
+        unpack4(make_uint2(t.x, t.y), r.a);
+        unpack4(make_uint2(t.z, t.w), r.a + 4);
     } else if constexpr (kBf16<S>) {
         const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
@@ -131,6 +136,10 @@ template <int V, class S>
 __device__ __forceinline__ void vst_stream(S* p, const Vec<V>& x) {
     if constexpr (kBf16<S> && V == 4) {
         __stcs(reinterpret_cast<uint2*>(p), pack4(x.a));
+    } else if constexpr (kBf16<S> && V == 8) {
+        const uint2 lo = pack4(x.a), hi = pack4(x.a + 4);
+        __stcs(reinterpret_cast<uint4*>(p),
+               make_uint4(lo.x, lo.y, hi.x, hi.y));
     } else if constexpr (kBf16<S>) {
         unsigned short* q = reinterpret_cast<unsigned short*>(p);
 #pragma unroll

@@ -1,18 +1,20 @@
-"""Hand-written CUDA kernels K1, K2, K3, K6, K7, K8 and K9, their plain
-PyTorch versions, and the build that turns ``csrc/*.cu`` into one shared
-library.
+"""Hand-written CUDA kernels K1, K2, K3, K6, K7, K8, K9 and the batch-norm
+edge adjoint, their plain PyTorch versions, and the build that turns
+``csrc/*.cu`` into one shared library.
 
 K3 (edge stage) and K6 (score gate) carry the batch-norm model's forward;
-K7 (gate batch statistics), K8 (edge-stage adjoint) and K9 (score-gate
-adjoint) carry its training.  K1 (endpoint gathers and gate) and K2
-(two-sided aggregation) carry the layer-norm and norm-free model, forward
-and backward (``ops/message.py`` wraps them in
-``torch.autograd.Function``s).  ``k2_side_sum``, one side of K2's walk as
-its own entry, carries the model zoo's reductions into nodes.
+K7 (gate batch statistics), K8 (edge-stage adjoint), the batch-norm edge
+adjoint (``bn_edge_adjoint``: the per-edge end of the batch-statistics
+chain, after K8) and K9 (score-gate adjoint) carry its training.  K1
+(endpoint gathers and gate) and K2 (two-sided aggregation) carry the
+layer-norm and norm-free model, forward and backward (``ops/message.py``
+wraps them in ``torch.autograd.Function``s).  ``k2_side_sum``, one side
+of K2's walk as its own entry, carries the model zoo's reductions into
+nodes.
 
-K1, K2, K3, K6, K7, K8 and K9 run in float32 or bfloat16 (the JAX
-package's ``compute.dtype=bfloat16``): each kernel has a bf16
-instantiation, chosen by the ``bf16`` flag its C entry takes from the
+K1, K2, K3, K6, K7, K8, K9 and the edge adjoint run in float32 or
+bfloat16 (the JAX package's ``compute.dtype=bfloat16``): each kernel has a
+bf16 instantiation, chosen by the ``bf16`` flag its C entry takes from the
 tensors' dtype, that reads and writes bf16 rows, computes in float32 and
 rounds where the JAX bf16 kernel rounds; its plain version does the same
 operations on bf16 tensors.  K2 and K9 sum bf16 payloads into float32
@@ -58,7 +60,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
 SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
            "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
-           "k9_aggregate.cu")
+           "k9_aggregate.cu", "bn_edge_adjoint.cu")
 HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh",
            "k3_edge_stage.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -191,6 +193,10 @@ def _library():
             lib.gn_k9_aggregate.argtypes = [
                 I, I, P, P, P, P,            # n_nodes, h, v_ptr, v_perm, u_ptr, u_perm
                 P, L, P, I, P]               # pay, ldp, out, bf16, stream
+            lib.gn_bn_edge_adjoint.restype = I
+            lib.gn_bn_edge_adjoint.argtypes = [
+                L, I, P, P, P, P,            # n_rows, w, x, d_eo, bn, sc
+                P, I, P]                     # out, bf16, stream
             lib.gn_cuda_error_string.restype = ctypes.c_char_p
             lib.gn_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -749,12 +755,59 @@ def k9_aggregate(u_idx, v_idx, v_csr, u_csr, pay):
     return out
 
 
+# ---------------------------------------------------- batch-norm edge adjoint
+def bn_edge_adjoint_plain(x, d_eo, bn, sc):
+    """Plain PyTorch batch-norm edge adjoint: ``d_b3e [E, w]``, the per-edge
+    end of the training edge stage's batch-statistics chain
+    (``ops/message.py``), from K8's ``x`` and ``d_eo`` [E, w], the ``[4, w]``
+    rows K3 and K8 took and ``sc`` = ``[gamma * inv | c1 | c2]`` ([3, w], in
+    ``wide``'s dtype): the relu mask of ``y = ((x - bn[0]) * bn[1]) * bn[2] +
+    bn[3]``, as K3 computes it, picks ``d_y`` from ``d_eo``, and ``d_y *
+    sc[0] + (sc[1] + sc[2] * x)`` is formed in ``wide``'s dtype and rounded
+    to ``x``'s.  In bfloat16 ``y`` rounds at each operation, as in K3."""
+    y = ((x - bn[0]) * bn[1]) * bn[2] + bn[3]
+    d_y = torch.where(y > 0, d_eo, torch.zeros_like(d_eo))
+    return (wide(d_y) * sc[0] + (sc[1] + sc[2] * wide(x))).to(x.dtype)
+
+
+def bn_edge_adjoint(x, d_eo, bn, sc):
+    """The batch-norm edge adjoint (csrc/bn_edge_adjoint.cu): one streaming
+    pass over ``x`` and ``d_eo`` in place of the plain version's elementwise
+    passes.  ``x``, ``d_eo`` and ``bn`` float32 or bfloat16 (of one dtype),
+    ``sc`` float32; every tensor contiguous.  Returns what
+    ``bn_edge_adjoint_plain`` returns, bit for bit."""
+    _same_dtype("BN edge adjoint", x=x, d_eo=d_eo, bn=bn)
+    if x.device.type == "cpu":
+        return bn_edge_adjoint_plain(x, d_eo, bn, sc)
+    if x.device.type != "cuda":
+        raise ValueError(f"BN edge adjoint: unsupported device {x.device}")
+    dev = x.device
+    E, w = x.shape
+    dt = _edge_dtype("BN edge adjoint", x)
+    for name, t in (("x", x), ("d_eo", d_eo)):
+        _check(name, t, dt, (E, w), dev)
+    _check("bn", bn, dt, (4, w), dev)
+    _check("sc", sc, torch.float32, (3, w), dev)
+    out = torch.empty_like(x)
+    if E == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_bn_edge_adjoint(
+            E, w, _ptr(x), _ptr(d_eo), _ptr(bn), _ptr(sc), _ptr(out),
+            int(dt == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "BN edge adjoint")
+    _count(bn_edge_adjoint, dt)
+    return out
+
+
 # ------------------------------------------------------------ launch counting
 KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
            "k2_side_sum": k2_side_sum, "k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
            "k7_gate_stats": k7_gate_stats,
            "k8_train_layer_bwd": k8_train_layer_bwd,
-           "k9_aggregate": k9_aggregate}
+           "k9_aggregate": k9_aggregate, "bn_edge_adjoint": bn_edge_adjoint}
 for _fn in KERNELS.values():
     _fn.launches = _fn.launches_bf16 = 0
 

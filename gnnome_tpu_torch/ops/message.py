@@ -13,13 +13,13 @@ patching.
 
 Every op is differentiable through a ``torch.autograd.Function`` whose
 backward is a kernel too, as in the JAX package: ``train_edge_stage``
-(forward K7 + K3, backward K8), ``score_gate`` (K6, backward K9),
-``gate_gather`` (K1, backward K2), the aggregation under
-``gated_mean_pair`` (K2, backward two row gathers) and ``gather_uv`` (row
-gathers, backward K2).  Every reduction into nodes walks a sorted segment
-inside a kernel, so a training step is bitwise reproducible on the card; no
-gather with repeated indices is left to autograd (its backward would be an
-atomic ``index_add_``).
+(forward K7 + K3, backward K8 and the batch-norm edge adjoint),
+``score_gate`` (K6, backward K9), ``gate_gather`` (K1, backward K2), the
+aggregation under ``gated_mean_pair`` (K2, backward two row gathers) and
+``gather_uv`` (row gathers, backward K2).  Every reduction into nodes walks
+a sorted segment inside a kernel, so a training step is bitwise
+reproducible on the card; no gather with repeated indices is left to
+autograd (its backward would be an atomic ``index_add_``).
 
 The ops run in the dtype of their node and edge states, float32 or
 bfloat16; the casts between the two sit where the JAX package's bf16 mode
@@ -32,9 +32,10 @@ from __future__ import annotations
 import torch
 
 from .graph_tensors import DeviceGraph
-from .kernels import (k1_gather_gate, k2_aggregate, k2_side_sum,
-                      k3_edge_stage, k6_score_gate, k7_gate_stats,
-                      k8_train_layer_bwd, k9_aggregate, wide, wide_dtype)
+from .kernels import (bn_edge_adjoint, k1_gather_gate, k2_aggregate,
+                      k2_side_sum, k3_edge_stage, k6_score_gate,
+                      k7_gate_stats, k8_train_layer_bwd, k9_aggregate, wide,
+                      wide_dtype)
 
 BN_EPS = 1e-5
 
@@ -164,10 +165,9 @@ class _TrainEdgeStage(torch.autograd.Function):
 
         # per-edge d_b3e = d_y * scale + c1 + c2 * x in float32, rounded to
         # the compute dtype (message.py:578-579); the relu mask from x with
-        # K3's operations
-        y = ((x - bn[0]) * bn[1]) * bn[2] + bn[3]
-        d_y = torch.where(y > 0, d_eo, torch.zeros_like(d_eo))
-        d_b3e = (wide(d_y) * (gamma * inv) + (c1 + c2 * wide(x))).to(dt)
+        # K3's operations: one pass (bn_edge_adjoint)
+        d_b3e = bn_edge_adjoint(x, d_eo, bn,
+                                torch.stack([gamma * inv, c1, c2]))
         # the same term summed into each endpoint: c1 * deg + c2 * xsum
         v_ptr, u_ptr = v_csr[0], u_csr[0]
         deg_u = (u_ptr[1:] - u_ptr[:-1]).to(wd)[:, None]
@@ -207,8 +207,9 @@ def train_edge_stage(g: DeviceGraph, flip: bool, h, w_uv, b_uv, w3, b3, e,
     normalises), K3 runs the edge stage with the rows [mean, inv_std, gamma,
     beta].  Returns ``(e_out [E, d], sum_v [N, 2d], sum_u [N, 2d], mean [d],
     unbiased_var [d])``; the last two carry no gradient (the running-stat
-    update happens under no_grad in torch).  The backward runs K8 and closes
-    the batch-statistics chain in node space.
+    update happens under no_grad in torch).  The backward runs K8, closes
+    the batch-statistics chain in node space and forms the per-edge
+    ``d_b3e`` in one more pass (``bn_edge_adjoint``).
 
     bfloat16 (JAX ``compute.dtype=bfloat16``): ``h``, ``e`` and the weights
     are bf16, ``gamma``/``beta`` float32; the statistics stay float32, K3

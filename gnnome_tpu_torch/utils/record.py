@@ -74,11 +74,12 @@ def launches_since(start: dict) -> dict:
 def unit_launches(layers: int = 8) -> tuple[dict, dict]:
     """The batch-norm SymGatedGCN's launches for one unit of the symmetry
     loss, ``(train step, eval step)``: a train step runs one dual-width
-    pass (a K7 and a K3 per layer, one K6) and its backward (a K8 per
-    layer, one K9), an eval step one dual-width pass."""
+    pass (a K7 and a K3 per layer, one K6) and its backward (a K8 and a
+    batch-norm edge adjoint per layer, one K9), an eval step one
+    dual-width pass."""
     return ({"k7_gate_stats": layers, "k3_edge_stage": layers,
-             "k8_train_layer_bwd": layers, "k6_score_gate": 1,
-             "k9_aggregate": 1},
+             "k8_train_layer_bwd": layers, "bn_edge_adjoint": layers,
+             "k6_score_gate": 1, "k9_aggregate": 1},
             {"k3_edge_stage": layers, "k6_score_gate": 1})
 
 

@@ -9,9 +9,10 @@ symmetry loss, plateau scheduler, a checkpoint per epoch), and records:
 
 * each epoch's metrics, wall time and units from the loop's JSONL log, and
   its kernel launches (``kernel_launches``; ``halo_launches`` per rank at
-  ``--mesh``), held against units x 8/8/8/1/1 K7/K3/K8/K6/K9 per training
-  unit plus 0/8/0/1/0 per validation unit (twice that per rank on the halo
-  path, whose ranks run the two symmetry passes one after the other);
+  ``--mesh``), held against units x 8/8/8/8/1/1 K7/K3/K8/edge
+  adjoint/K6/K9 per training unit plus 0/8/0/0/1/0 per validation unit
+  (twice that per rank on the halo path, whose ranks run the two symmetry
+  passes one after the other);
 * the resume gate: the same checkpoint continued twice for one epoch, every
   array of the two resumed checkpoints compared bitwise
   (``resume_bit_identical``), and a run of ``epochs + 1`` never

@@ -1,9 +1,9 @@
-"""The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8 and K9
-against their plain PyTorch versions, on the card, and two card train
-steps from one state bitwise equal (batch norm, layer norm, two zoo
-models), the halo path's forward at two ranks on the card against the
-single-device one, and the entry points of ``entry.py`` (``entry``, a 2-rank
-``dryrun_multichip``).  Every test here is
+"""The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8, K9 and
+the batch-norm edge adjoint against their plain PyTorch versions, on the
+card, and two card train steps from one state bitwise equal (batch norm,
+layer norm, two zoo models), the halo path's forward at two ranks on the
+card against the single-device one, and the entry points of ``entry.py``
+(``entry``, a 2-rank ``dryrun_multichip``).  Every test here is
 ``cuda``-marked and skips where no GPU is present.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -318,7 +318,8 @@ def test_k9_kernel_vs_plain(graphs, cuda, flip, h, which, layout):
 
 @pytest.mark.parametrize("norm,launches", [
     ("batch", {"k3_edge_stage": 16, "k6_score_gate": 2, "k7_gate_stats": 16,
-               "k8_train_layer_bwd": 16, "k9_aggregate": 2}),
+               "k8_train_layer_bwd": 16, "bn_edge_adjoint": 16,
+               "k9_aggregate": 2}),
     ("layer", {"k1_gather_gate": 32, "k2_aggregate": 68})])
 def test_two_card_train_steps_bitwise_equal(cuda, norm, launches):
     """Two train steps from one state (weights, data, dropout seed) give the
@@ -567,7 +568,8 @@ def test_k9_bf16_kernel_vs_plain(graphs, cuda, flip, h, which, layout):
 
 def test_two_card_bf16_train_steps_bitwise_equal(cuda):
     """Two batch-norm train steps at compute.dtype=bfloat16 from one state:
-    bitwise equal, through the bf16 kernels only (8/8/8/1/1 per step)."""
+    bitwise equal, through the bf16 kernels only (8/8/8/8/1/1
+    K7/K3/K8/edge adjoint/K6/K9 per step)."""
     import numpy as np
 
     from gnnome_tpu_torch.config import Config
@@ -597,7 +599,8 @@ def test_two_card_bf16_train_steps_bitwise_equal(cuda):
     assert K.launch_counts() == {**{k: 0 for k in K.KERNELS},
                                  "k3_edge_stage": 16, "k6_score_gate": 2,
                                  "k7_gate_stats": 16,
-                                 "k8_train_layer_bwd": 16, "k9_aggregate": 2}
+                                 "k8_train_layer_bwd": 16,
+                                 "bn_edge_adjoint": 16, "k9_aggregate": 2}
     (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
     assert lo0.dtype == torch.float32 and torch.isfinite(lo0).all()
     assert all(t.dtype == torch.float32 for t in g0 + p0)
@@ -705,6 +708,87 @@ def test_two_card_unfused_bf16_train_steps_bitwise_equal(cuda, norm,
     assert all(torch.equal(a, b) for a, b in zip(g0 + p0, g1 + p1))
 
 
+# The batch-norm edge adjoint (csrc/bn_edge_adjoint.cu): bit for bit its
+# plain version run on the card, in float32 and bf16, at the dual width
+# 128, the single pass's 64 and 36 (not a whole number of 16-byte words:
+# the one-element path), on a row count that leaves a ragged last tile;
+# rows 2 bytes off a 16-byte boundary take the one-element path too.
+def _adjoint_inputs(E, w, dt, cuda, seed, offset=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mean = torch.randn(w, device=cuda, generator=gen) * 0.3
+    inv = torch.rand(w, device=cuda, generator=gen) + 0.5
+    gamma = torch.rand(w, device=cuda, generator=gen) + 0.5
+    beta = torch.randn(w, device=cuda, generator=gen) * 0.1
+    if dt == torch.bfloat16:
+        scale = gamma * inv
+        bn = torch.stack([torch.zeros_like(scale), torch.ones_like(scale),
+                          scale, beta - mean * scale]).to(dt)
+    else:
+        bn = torch.stack([mean, inv, gamma, beta])
+    x = (torch.randn(E, w, device=cuda, generator=gen) / inv + mean).to(dt)
+    d_eo = torch.randn(E, w, device=cuda, generator=gen).to(dt)
+    c1, c2 = (torch.randn(w, device=cuda, generator=gen) * 1e-4
+              for _ in range(2))
+    return (_shifted(x, offset), _shifted(d_eo, offset), bn,
+            torch.stack([gamma * inv, c1, c2]))
+
+
+def _shifted(t, offset: int):
+    """``t``'s values, contiguous, ``offset`` elements into a storage."""
+    out = torch.empty(t.numel() + offset, dtype=t.dtype,
+                      device=t.device)[offset:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("w", [128, 64, 36])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bn_edge_adjoint_kernel_vs_plain(cuda, dt, w):
+    x, d_eo, bn, sc = _adjoint_inputs(100_003, w, dt, cuda, seed=31)
+    n0, b0 = K.bn_edge_adjoint.launches, K.bn_edge_adjoint.launches_bf16
+    got = K.bn_edge_adjoint(x, d_eo, bn, sc)
+    assert K.bn_edge_adjoint.launches == n0 + 1
+    assert K.bn_edge_adjoint.launches_bf16 == b0 + (dt == torch.bfloat16)
+    ref = K.bn_edge_adjoint_plain(x, d_eo, bn, sc)
+    torch.cuda.synchronize()
+    y = ((x - bn[0]) * bn[1]) * bn[2] + bn[3]
+    assert 0.3 < float((y > 0).float().mean()) < 0.7
+    assert got.dtype == dt and got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got, ref)
+    assert torch.equal(got, K.bn_edge_adjoint(x, d_eo, bn, sc))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bn_edge_adjoint_unaligned_rows(cuda, dt):
+    x, d_eo, bn, sc = _adjoint_inputs(5_001, 64, dt, cuda, seed=32, offset=1)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert torch.equal(K.bn_edge_adjoint(x, d_eo, bn, sc),
+                       K.bn_edge_adjoint_plain(x, d_eo, bn, sc))
+
+
+def test_bn_edge_adjoint_rejects_bad_inputs(cuda):
+    x, d_eo, bn, sc = _adjoint_inputs(1_000, 64, torch.float32, cuda, seed=33)
+    n0 = K.bn_edge_adjoint.launches
+    with pytest.raises(TypeError):                       # float64 rows
+        K.bn_edge_adjoint(x.double(), d_eo.double(), bn.double(), sc)
+    with pytest.raises(TypeError):                       # sc not float32
+        K.bn_edge_adjoint(x, d_eo, bn, sc.double())
+    with pytest.raises(TypeError):                       # mixed dtypes
+        K.bn_edge_adjoint(x, d_eo.bfloat16(), bn, sc)
+    with pytest.raises(ValueError):                      # d_eo's shape
+        K.bn_edge_adjoint(x, d_eo[:-1], bn, sc)
+    with pytest.raises(ValueError):                      # bn's width
+        K.bn_edge_adjoint(x, d_eo, bn[:, :32], sc)
+    with pytest.raises(ValueError):                      # a column slice
+        K.bn_edge_adjoint(torch.zeros(1_000, 72, device=cuda)[:, :64],
+                          d_eo, bn, sc)
+    with pytest.raises(ValueError):                      # rows not dense
+        K.bn_edge_adjoint(x, torch.zeros(64, 1_000, device=cuda).t(), bn, sc)
+    assert K.bn_edge_adjoint.launches == n0
+    empty = torch.zeros(0, 64, device=cuda)
+    out = K.bn_edge_adjoint(empty, empty, bn, sc)
+    assert out.shape == (0, 64) and K.bn_edge_adjoint.launches == n0
+
+
 # The halo path (parallel/halo.py) on the card: two ranks share it over
 # gloo, their strips staged through host memory.  Logits against the
 # single-device card forward at the forward tolerance of
@@ -747,7 +831,8 @@ def test_halo_forward_two_ranks_vs_single_device(cuda, false_edge_frac):
 # logits against entry(device="cpu") within the forward tolerance of
 # tests/test_torch_train.py:62, a second card call bitwise equal, 8 K3 + 1
 # K6 float32 launches; a 2-rank dry run (gloo ranks sharing the card, or
-# NCCL with two GPUs) with 16/16/16/2/2 K7/K3/K8/K6/K9 launches per rank.
+# NCCL with two GPUs) with 16/16/16/16/2/2 K7/K3/K8/edge adjoint/K6/K9
+# launches per rank.
 def test_entry_on_card_vs_cpu(cuda):
     import numpy as np
 
@@ -775,7 +860,8 @@ def test_dryrun_two_ranks_on_card(cuda):
     assert np.isfinite(res["loss"])
     want = {**{k: 0 for k in K.KERNELS}, "k3_edge_stage": 16,
             "k6_score_gate": 2, "k7_gate_stats": 16,
-            "k8_train_layer_bwd": 16, "k9_aggregate": 2}
+            "k8_train_layer_bwd": 16, "bn_edge_adjoint": 16,
+            "k9_aggregate": 2}
     assert res["launches_per_rank"] == [want, want]
 
 

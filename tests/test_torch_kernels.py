@@ -16,7 +16,9 @@ backward) and the score gate's backward (K9) are held against
 forward outputs and the VJP under seeded random cotangents, both flips, and
 through ``torch.autograd.gradcheck`` in float64.  K9's plain version returns
 one ``[sum_u | sum_v]`` and adds in slot order (bit-equal to a sequential
-loop), also from a row-strided payload.
+loop), also from a row-strided payload.  The batch-norm edge adjoint's
+plain version gives the inline chain of the backward it replaced, bit for
+bit.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py.
@@ -285,7 +287,7 @@ def test_wrappers_count_only_kernel_launches(graphs):
     assert set(K.KERNELS) == {"k1_gather_gate", "k2_aggregate",
                               "k2_side_sum", "k3_edge_stage", "k6_score_gate",
                               "k7_gate_stats", "k8_train_layer_bwd",
-                              "k9_aggregate"}
+                              "k9_aggregate", "bn_edge_adjoint"}
 
 
 # ------------------------------------------------------- training functions
@@ -435,6 +437,55 @@ def test_k9_takes_a_row_strided_payload(graphs, pad):
                        K.k9_aggregate(u, v, v_csr, u_csr, pay.contiguous()))
 
 
+def _inline_d_b3e(x, d_eo, bn, gamma, inv, c1, c2):
+    """The expression ``_TrainEdgeStage.backward`` formed d_b3e with before
+    ``bn_edge_adjoint`` took it over (gnnome_tpu/ops/message.py:557-579)."""
+    y = ((x - bn[0]) * bn[1]) * bn[2] + bn[3]
+    d_y = torch.where(y > 0, d_eo, torch.zeros_like(d_eo))
+    return (K.wide(d_y) * (gamma * inv) + (c1 + c2 * K.wide(x))).to(x.dtype)
+
+
+@pytest.mark.parametrize("w", [64, 36])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bn_edge_adjoint_plain_is_the_inline_chain(dt, w):
+    """The batch-norm edge adjoint's plain version (and its wrapper on CPU
+    tensors) gives the inline chain's d_b3e bit for bit, in float32 and in
+    bf16 (the folded rows of ``bn_edge_rows``), with ``y`` on both sides of
+    0 and the statistics' adjoints ``c1``, ``c2`` of a float64 chain rounded
+    to float32."""
+    from gnnome_tpu_torch.ops.message import bn_edge_rows
+
+    gen = torch.Generator().manual_seed(21)
+    E = 3000
+    mean = torch.randn(w, generator=gen) * 0.3
+    inv = torch.rand(w, generator=gen) + 0.5
+    gamma = torch.rand(w, generator=gen) + 0.5
+    beta = torch.randn(w, generator=gen) * 0.1
+    bn = bn_edge_rows(mean, inv, gamma, beta, dt)
+    x = (torch.randn(E, w, generator=gen) / inv + mean).to(dt)
+    d_eo = torch.randn(E, w, generator=gen).to(dt)
+    c1, c2 = (torch.randn(w, generator=gen, dtype=torch.float64)
+              .mul(1e-4).float() for _ in range(2))
+    sc = torch.stack([gamma * inv, c1, c2])
+    want = _inline_d_b3e(x, d_eo, bn, gamma, inv, c1, c2)
+    y = ((x - bn[0]) * bn[1]) * bn[2] + bn[3]
+    assert 0.3 < float((y > 0).float().mean()) < 0.7
+    for got in (K.bn_edge_adjoint_plain(x, d_eo, bn, sc),
+                K.bn_edge_adjoint(x, d_eo, bn, sc)):
+        assert got.dtype == dt and got.shape == (E, w)
+        assert torch.equal(got, want)
+
+
+def test_bn_edge_adjoint_refuses_mixed_dtypes():
+    """x, d_eo and bn of one dtype; a mixed call raises, on any device."""
+    x = torch.zeros(4, 8)
+    bn = torch.zeros(4, 8)
+    with pytest.raises(TypeError):
+        K.bn_edge_adjoint(x, x.bfloat16(), bn, torch.zeros(3, 8))
+    with pytest.raises(TypeError):
+        K.bn_edge_adjoint(x, x, bn.bfloat16(), torch.zeros(3, 8))
+
+
 @pytest.fixture(scope="module")
 def tiny():
     g, _, _, _ = synthetic_assembly_graph(n_reads=6, genome_len=1500,
@@ -519,6 +570,8 @@ def _no_edge_call(name, dt):
              zeros(2 * d, t=f64)]),
         "k9_aggregate": (lambda: K.k9_aggregate(u, v, v_csr, u_csr, edges(d)),
                          [zeros(n, 2 * d, t=f32)]),
+        "bn_edge_adjoint": (lambda: K.bn_edge_adjoint(
+            edges(d), edges(d), bn, zeros(3, d, t=f32)), [edges(d)]),
     }[name]
 
 
