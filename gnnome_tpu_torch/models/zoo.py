@@ -28,6 +28,12 @@ walk), so training stays bitwise reproducible on the card.  Each module's
 ``forward(g, x, e, g_proc=None, generator=None, slot_io=False)`` takes the
 original graph ``g``, its processor graph ``g_proc`` (None: ``g`` itself)
 and returns logits [E, 1] as ``SymGatedGCN.forward`` does.
+
+Spans (``utils.timing``): each model's forward is ``model.forward``; in
+each GATConv, the attention (``el``/``er``, edge logits, the segment max,
+``exp``, denominators, ``alpha``) is ``gat.attention`` and the messages
+(the gather, the weighting, the sum into nodes, the bias) are
+``gat.aggregate``, ``fc`` and ``proj`` outside both.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from torch import nn
 
 from ..ops.graph_tensors import DeviceGraph
 from ..ops.message import gather_rows, sum_into
+from ..utils.timing import span
 from .nn import dropout, mlp2
 from .norm import apply_norm
 from .sym_gated_gcn import (GATE_EPS, NORMALIZATIONS, ScorePredictor,
@@ -219,18 +226,19 @@ class GatedGCN(_ZooModel):
     def forward(self, g: DeviceGraph, x, e, g_proc=None, generator=None,
                 slot_io: bool = False):
         """JAX ``gated_gcn_forward`` (zoo.py:137-179)."""
-        drop = self._drop(generator)
-        h, e = self._encode(g, x, e, slot_io)
-        if g_proc is not None:
-            # the reversed copies start from their originals' features
-            e_host = g.slots_to_edges(e)
-            e = g_proc.edges_to_slots(torch.cat([e_host, e_host]))
-        gp = g if g_proc is None else g_proc
-        for conv in self.gnn.convs:
-            h, e = conv(gp, h, e, drop, generator)
-        if g_proc is not None:
-            e = g.edges_to_slots(g_proc.slots_to_edges(e)[:g.n_edges])
-        return self._predict(g, h, e, slot_io)
+        with span("model.forward"):
+            drop = self._drop(generator)
+            h, e = self._encode(g, x, e, slot_io)
+            if g_proc is not None:
+                # the reversed copies start from their originals' features
+                e_host = g.slots_to_edges(e)
+                e = g_proc.edges_to_slots(torch.cat([e_host, e_host]))
+            gp = g if g_proc is None else g_proc
+            for conv in self.gnn.convs:
+                h, e = conv(gp, h, e, drop, generator)
+            if g_proc is not None:
+                e = g.edges_to_slots(g_proc.slots_to_edges(e)[:g.n_edges])
+            return self._predict(g, h, e, slot_io)
 
 
 # ========================================================================= GCN
@@ -246,17 +254,18 @@ class GCN(_ZooModel):
     def forward(self, g: DeviceGraph, x, e, g_proc=None, generator=None,
                 slot_io: bool = False):
         """JAX ``gcn_forward`` (zoo.py:198-220)."""
-        h, e = self._encode(g, x, e, slot_io)
-        gp = g if g_proc is None else g_proc
-        c_src = torch.rsqrt(_degrees(gp.src_ptr))
-        c_dst = torch.rsqrt(_degrees(gp.dst_ptr))
-        n_layers = len(self.gnn.convs)
-        for i, conv in enumerate(self.gnn.convs):
-            hs = gather_rows(gp, "src", h * c_src)
-            h = conv(sum_into(gp, "dst", hs) * c_dst)
-            if i < n_layers - 1:
-                h = torch.relu(h)
-        return self._predict(g, h, e, slot_io)
+        with span("model.forward"):
+            h, e = self._encode(g, x, e, slot_io)
+            gp = g if g_proc is None else g_proc
+            c_src = torch.rsqrt(_degrees(gp.src_ptr))
+            c_dst = torch.rsqrt(_degrees(gp.dst_ptr))
+            n_layers = len(self.gnn.convs)
+            for i, conv in enumerate(self.gnn.convs):
+                hs = gather_rows(gp, "src", h * c_src)
+                h = conv(sum_into(gp, "dst", hs) * c_dst)
+                if i < n_layers - 1:
+                    h = torch.relu(h)
+            return self._predict(g, h, e, slot_io)
 
 
 # ========================================================================= GAT
@@ -289,25 +298,28 @@ class _GATConv(nn.Module):
         if drop_rate > 0.0:
             h = dropout(h, drop_rate, generator)
         feat = self.fc(h)                                    # [N, H*d]
-        f3 = feat.view(n, heads, d)
-        el = (f3 * self.attn_l).sum(-1)                      # [N, H]
-        er = (f3 * self.attn_r).sum(-1)
-        logit = F.leaky_relu(gather_rows(g, "src", el)
-                             + gather_rows(g, "dst", er), 0.2)
-        # The per-destination max only shifts the softmax, which does not
-        # change under a shift: detached, its gradient (which cancels
-        # exactly in the softmax) is left out.  A max is exact in any
-        # order, so scatter_reduce's order on the card changes no bit.
-        # Nodes without in-edges keep 0 (zoo.py:266).
-        with torch.no_grad():
-            idx = g.dst.long()[:, None].expand(-1, heads)
-            seg_max = logit.new_zeros(n, heads).scatter_reduce(
-                0, idx, logit, "amax", include_self=False)
-        expv = torch.exp(logit - seg_max.index_select(0, g.dst))
-        denom = sum_into(g, "dst", expv)                     # [N, H]
-        alpha = expv / gather_rows(g, "dst", denom).clamp_min(1e-9)
-        msg = gather_rows(g, "src", feat).view(-1, heads, d) * alpha[:, :, None]
-        return sum_into(g, "dst", msg.reshape(-1, heads * d)) + self.bias
+        with span("gat.attention"):
+            f3 = feat.view(n, heads, d)
+            el = (f3 * self.attn_l).sum(-1)                  # [N, H]
+            er = (f3 * self.attn_r).sum(-1)
+            logit = F.leaky_relu(gather_rows(g, "src", el)
+                                 + gather_rows(g, "dst", er), 0.2)
+            # The per-destination max only shifts the softmax, which does
+            # not change under a shift: detached, its gradient (which
+            # cancels exactly in the softmax) is left out.  A max is exact
+            # in any order, so scatter_reduce's order on the card changes
+            # no bit.  Nodes without in-edges keep 0 (zoo.py:266).
+            with torch.no_grad():
+                idx = g.dst.long()[:, None].expand(-1, heads)
+                seg_max = logit.new_zeros(n, heads).scatter_reduce(
+                    0, idx, logit, "amax", include_self=False)
+            expv = torch.exp(logit - seg_max.index_select(0, g.dst))
+            denom = sum_into(g, "dst", expv)                 # [N, H]
+            alpha = expv / gather_rows(g, "dst", denom).clamp_min(1e-9)
+        with span("gat.aggregate"):
+            msg = (gather_rows(g, "src", feat).view(-1, heads, d)
+                   * alpha[:, :, None])
+            return sum_into(g, "dst", msg.reshape(-1, heads * d)) + self.bias
 
 
 class GAT(_ZooModel):
@@ -334,15 +346,16 @@ class GAT(_ZooModel):
     def forward(self, g: DeviceGraph, x, e, g_proc=None, generator=None,
                 slot_io: bool = False):
         """JAX ``gat_forward`` (zoo.py:285-303)."""
-        drop = self._drop(generator)
-        h, e = self._encode(g, x, e, slot_io)
-        gp = g if g_proc is None else g_proc
-        n_layers = len(self.gnn.convs)
-        for i, (conv, proj) in enumerate(zip(self.gnn.convs, self.proj)):
-            h = proj(conv(gp, h, drop, generator))
-            if i < n_layers - 1:
-                h = torch.relu(h)
-        return self._predict(g, h, e, slot_io)
+        with span("model.forward"):
+            drop = self._drop(generator)
+            h, e = self._encode(g, x, e, slot_io)
+            gp = g if g_proc is None else g_proc
+            n_layers = len(self.gnn.convs)
+            for i, (conv, proj) in enumerate(zip(self.gnn.convs, self.proj)):
+                h = proj(conv(gp, h, drop, generator))
+                if i < n_layers - 1:
+                    h = torch.relu(h)
+            return self._predict(g, h, e, slot_io)
 
 
 # ======================================================================== SAGE
@@ -365,18 +378,19 @@ class SAGE(_ZooModel):
     def forward(self, g: DeviceGraph, x, e, g_proc=None, generator=None,
                 slot_io: bool = False):
         """JAX ``sage_forward`` (zoo.py:321-345)."""
-        drop = self._drop(generator)
-        h, e = self._encode(g, x, e, slot_io)
-        gp = g if g_proc is None else g_proc
-        deg_in = _degrees(gp.dst_ptr)
-        n_layers = len(self.gnn.convs)
-        for i, conv in enumerate(self.gnn.convs):
-            hi = dropout(h, drop, generator) if drop > 0.0 else h
-            mean = sum_into(gp, "dst", gather_rows(gp, "src", hi)) / deg_in
-            h = conv.fc_self(hi) + conv.fc_neigh(mean)
-            if i < n_layers - 1:
-                h = torch.relu(h)
-        return self._predict(g, h, e, slot_io)
+        with span("model.forward"):
+            drop = self._drop(generator)
+            h, e = self._encode(g, x, e, slot_io)
+            gp = g if g_proc is None else g_proc
+            deg_in = _degrees(gp.dst_ptr)
+            n_layers = len(self.gnn.convs)
+            for i, conv in enumerate(self.gnn.convs):
+                hi = dropout(h, drop, generator) if drop > 0.0 else h
+                mean = sum_into(gp, "dst", gather_rows(gp, "src", hi)) / deg_in
+                h = conv.fc_self(hi) + conv.fc_neigh(mean)
+                if i < n_layers - 1:
+                    h = torch.relu(h)
+            return self._predict(g, h, e, slot_io)
 
 
 # ==================================================================== registry
