@@ -18,8 +18,9 @@ seconds since the script started):
    K6 once per forward; average precision against the graph's labels.
 3. ``model_unfused``: the same graph scored by the layer-norm and the
    norm-free model at full width and depth (d=H=64, 8 layers, seeded init
-   weights): card vs CPU, two card runs bitwise equal, exactly 8 K1 and 8
-   K2 launches per forward and no other kernel, forward time and memory.
+   weights): card vs CPU, two card runs bitwise equal, exactly 8 K1, 8
+   layer-norm edge stages and 8 K2 launches per forward and no other
+   kernel, forward time and memory.
 4. ``kernels``: K1, K2 (at Dp = 128 and 64), K3, K6, K7, K8 and K9 (each at
    both flips) at the golden graph's shapes on its real CSR, inputs from
    ``--seed``; each kernel against its plain PyTorch version on the card,
@@ -50,7 +51,12 @@ seconds since the script started):
    to its plain version, timed beside its byte bound, the plain version
    and ``torch.add`` of its two inputs (the same three streams); its
    one-element path at w = 36 and on rows off a 16-byte boundary checked.
-   Every wrapper at E = 0 (a graph of 5 nodes and no edges, float32 and
+   The layer-norm edge stage and its adjoint (with LayerNorm and
+   norm-free) at d = 64 on the golden graph and at the ~1.21M edge rows
+   and 262,144 nodes of the benchmark cell train-ln64-g262k, at d = 6 and
+   200 on the golden graph: against their plain versions on the card
+   (LN_* tolerances), bitwise reproducible, timed beside their byte
+   bounds and plain versions.  Every wrapper at E = 0 (a graph of 5 nodes and no edges, float32 and
    bf16): its plain version's outputs, no launch.
 5. ``infer``: a synthetic dataset written in the dataset layout, then
    ``gnnome_tpu_torch.cli infer`` on the card (the eval path, with every
@@ -76,7 +82,8 @@ seconds since the script started):
    (``forward_pair``) on the card; on the whole golden graph as one unit,
    two steps from one state bitwise equal (loss, logits, gradients,
    parameters after Adam), exactly 8 K7, 8 K3, 8 K8, 8 A, 1 K6 and 1 K9
-   launches per step (layer norm: 16 K1 and 34 K2), no host
+   launches per step (layer norm: 16 K1, 16 layer-norm edge stages, 16
+   of their adjoints and 34 K2), no host
    synchronisation inside a step (``torch.cuda.set_sync_debug_mode
    ("error")``), the step time and peak memory.
 7. ``train``: ``gnnome_tpu_torch.cli train`` on the card with the default
@@ -129,11 +136,13 @@ seconds since the script started):
    bf16, card vs the CPU's bf16 run (logit cosine > 0.9995,
    probabilities within 0.02, AP within 5e-4), two card runs bitwise
    equal, 8 K1 + 8 K2 per forward, all bf16 (none) or one bf16 K1 (layer
-   norm: float32 from its first norms on, as in the JAX package), the
+   norm: float32 from its first norms on, as in the JAX package, so its
+   layers 2-8 also run 7 float32 layer-norm edge stages), the
    forward's time and memory beside phase 3's; ``train_step_none`` (phase
    6 for the norm-free model) and ``train_step_layer_bf16`` /
    ``train_step_none_bf16``: phase 6's checks in bf16 against the CPU's
-   bf16 step to the JAX package's bf16 bounds, 16 K1 + 34 K2 per step, of
+   bf16 step to the JAX package's bf16 bounds, 16 K1 + 34 K2 per step
+   (layer norm also 14 float32 edge stages and 14 of their adjoints), of
    them bf16 16 + 34 (none) or 2 + 2 (layer norm), the step's time and
    memory beside float32's; ``cli_unfused_bf16`` (after ``cli_bf16``):
    ``cli train --set model.normalization=none --set compute.dtype=
@@ -268,7 +277,9 @@ rank 0's, every rank's checked equal; phase 19's ``product_train_card``,
 K3, K6, K7, K8 and K9 a ``bfloat16`` entry with the same numbers for the
 bf16 instantiation (K3-K9 at width 128, launches from the bf16 overfit
 run of phase 11; K1 and K2 at the norm-free model's widths 64 and 128,
-launches from the bf16 overfit run of phase 12); two rows for the probes'
+launches from the bf16 overfit run of phase 12); the layer-norm edge
+stage and its adjoint (d = 64 on the golden graph, and at the ln cell's
+rows, launches from phase 8's training path); two rows for the probes'
 kernels, ``k3_ablate`` (``full`` on the bench graph, d = 64, bf16, as the
 JAX probe runs) and ``stream_sum`` (T = 768, ET = 2048, K = 4, bf16);
 four rows for the Mosaic repro probe's kernels, ``row_stack``,
@@ -384,18 +395,34 @@ OVERFIT_LOSS_DROP, OVERFIT_MIN_AP = 0.9, 0.75
 TRAIN_STEP_LAUNCHES = {"k3_edge_stage": 8, "k6_score_gate": 1,
                        "k7_gate_stats": 8, "k8_train_layer_bwd": 8,
                        "bn_edge_adjoint": 8, "k9_aggregate": 1}
-# the layer-norm and norm-free model runs K1 and K2 only: per forward one K1
-# and one K2 (the gated means) per layer; per symmetry-loss step two
-# forwards and their backwards (K2 for each K1, two row gathers for each
-# gated-mean K2, K2 for each predictor's endpoint gathers)
-UNFUSED_FORWARD_LAUNCHES = {"k1_gather_gate": 8, "k2_aggregate": 8}
-UNFUSED_STEP_LAUNCHES = {"k1_gather_gate": 16, "k2_aggregate": 34}
+# the layer-norm and norm-free model in float32: per forward one K1, one
+# layer-norm edge stage and one K2 (the gated means) per layer; per
+# symmetry-loss step two forwards and their backwards (per layer the
+# stage's adjoint and K2 for K1's adjoint, K2 for each predictor's endpoint
+# gathers)
+UNFUSED_FORWARD_LAUNCHES = {"k1_gather_gate": 8, "k2_aggregate": 8,
+                            "ln_edge_stage": 8}
+UNFUSED_STEP_LAUNCHES = {"k1_gather_gate": 16, "k2_aggregate": 34,
+                         "ln_edge_stage": 16, "ln_edge_adjoint": 16}
+# the same layers through the PyTorch chain between K1 and K2 (bf16
+# operands; the sharded layer of parallel/sharded.py): K1 and K2 only, two
+# row gathers for each gated-mean K2 in the backward
+K1K2_FORWARD_LAUNCHES = {"k1_gather_gate": 8, "k2_aggregate": 8}
+K1K2_STEP_LAUNCHES = {"k1_gather_gate": 16, "k2_aggregate": 34}
 UNFUSED_INIT_SEED = 7              # init_weights seed of those models
 # their bf16 mode (compute.dtype=bfloat16): the norm-free model runs every
-# K1 and K2 in bf16; the layer-norm model turns float32 at its first norms
-# (LayerNorm's float32 weight and bias promote it, as in the JAX package),
-# so only its first layer's K1 runs in bf16, and per step that K1's
-# adjoint K2 too (tests/test_torch_bf16_unfused.py::test_dtype_flow)
+# K1 and K2 in bf16, through the chain; the layer-norm model turns float32
+# at its first norms (LayerNorm's float32 weight and bias promote it, as in
+# the JAX package), so only its first layer's K1 runs in bf16, and per step
+# that K1's adjoint K2 too (tests/test_torch_bf16_unfused.py::
+# test_dtype_flow), and its float32 layers 2-8 run the layer-norm edge
+# stage.  All launches (UNFUSED_*_ALL_BF16), and those in bf16
+UNFUSED_FORWARD_ALL_BF16 = {"none": K1K2_FORWARD_LAUNCHES,
+                            "layer": {**K1K2_FORWARD_LAUNCHES,
+                                      "ln_edge_stage": 7}}
+UNFUSED_STEP_ALL_BF16 = {"none": K1K2_STEP_LAUNCHES,
+                         "layer": {**K1K2_STEP_LAUNCHES, "ln_edge_stage": 14,
+                                   "ln_edge_adjoint": 14}}
 UNFUSED_FORWARD_BF16 = {"none": {"k1_gather_gate": 8, "k2_aggregate": 8},
                         "layer": {"k1_gather_gate": 1}}
 UNFUSED_STEP_BF16 = {"none": {"k1_gather_gate": 16, "k2_aggregate": 34},
@@ -432,6 +459,22 @@ GFA_TIMING_BUILD = dict(n_reads=4800, genome_len=600_000, read_len=900,
 # pass runs it at w = 128; its one-element path checked at w = 36
 BN_ADJOINT_CELL_ROWS = 2_410_000
 BN_ADJOINT_ODD_W = 36
+# the layer-norm edge stage and its adjoint are checked and timed at d = 64
+# on the golden graph and at the ~1.21M edge rows and 262,144 nodes of the
+# benchmark cell train-ln64-g262k (random endpoints), with LayerNorm and
+# norm-free; d = 6 (one feature a lane) and 200 (two vectors a lane) are
+# checked on the golden graph.  Against the plain version on the card: the
+# forward's row mean and variance add in another order than torch.mean
+# (LN_FWD_*: float32 rounding of the normalised values); the adjoint takes
+# the kernel's statistics, so its relu mask is the plain version's, and
+# its two row sums add in another order (LN_ADJ_*); d_weight and d_bias
+# within LN_PARAM_REL of the summed magnitudes of their terms (float64
+# block sums of the float32 products, the plain version sums in float32)
+LN_CELL_ROWS, LN_CELL_NODES = 1_210_000, 262_144
+LN_CHECK_WIDTHS = (6, 200)
+LN_FWD_RTOL, LN_FWD_ATOL = 1e-5, 1e-5
+LN_ADJ_RTOL, LN_ADJ_ATOL = 1e-4, 1e-5
+LN_PARAM_REL = 1e-5
 # kernels at E = 0 (a halo rank whose block holds no edge): a graph of
 # NO_EDGE_N nodes, d = H = 64; each wrapper must return its plain version's
 # empty edge rows and zero sums and statistics without a launch
@@ -617,6 +660,25 @@ def bn_adjoint_cost(E: int, w: int, es: int = F4):
     return es * (3 * E * w + 4 * w) + F4 * 3 * w, 9.0 * E * w, 0.0
 
 
+def ln_stage_cost(E: int, d: int):
+    """The layer-norm edge stage: read g3 [E, 3d], e_in [E, d] and the [d]
+    weight and bias; write e_out [E, d], the payloads [E, 2d] each and the
+    [E, 2] statistics.  ~16 operations an element (statistics 5, the
+    normalisation 4, relu and residual 2, sigmoid ~3, two products)."""
+    return F4 * (4 * E * d + 2 * d + 5 * E * d + 2 * E), 16.0 * E * d, 0.0
+
+
+def ln_adjoint_cost(N: int, E: int, d: int):
+    """The layer-norm edge stage's adjoint: read g3 [E, 3d], e_out and
+    d_e_out [E, d], the statistics [E, 2], u/v indices, the two [N, 2d]
+    cotangents once, weight and bias; write the payloads [E, 2d] each, d_e
+    [E, d] and [2, d]; ~30 float32 operations an element (sigmoid ~3,
+    d_sigma 7, d_e 4, the normalisation 4, mask 1, the row sums 4, d_gate
+    4, the messages 2) and 2 float64 adds (the parameter sums)."""
+    return (F4 * (5 * E * d + 2 * E + 2 * N * 2 * d + 2 * d + 5 * E * d
+                  + 2 * d) + I4 * 2 * E, 30.0 * E * d, 2.0 * E * d)
+
+
 def adjoint_inputs(E: int, w: int, dt, randn, rand):
     """x, d_eo [E, w], the rows bn [4, w] and sc [3, w] of the batch-norm
     edge adjoint; x drawn about the mean so that y straddles 0."""
@@ -692,6 +754,122 @@ def bn_adjoint_times(dev, seed: int, dt, golden_edges: int) -> dict:
                tolerance={"atol": 0.0},
                add_call="torch.add(x, d_eo, out=...): the same three "
                         "[E, w] streams, PyTorch's vectorised kernel")
+    return out
+
+
+def check_ln_stage(u, v, n: int, d: int, norm: bool, randn, rand,
+                   what: str) -> dict:
+    """The layer-norm edge stage (``norm`` False: norm-free) and its adjoint
+    at width ``d`` on the edge rows of endpoints ``u``, ``v`` over ``n``
+    nodes, against their plain versions on the card (LN_* tolerances) and
+    bitwise reproducible; returns the largest differences and the two
+    calls' arguments."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    E = u.shape[0]
+    w = rand(d) + 0.5 if norm else None
+    b = randn(d) * 0.1 if norm else None
+    fwd = (randn(E, 3 * d), randn(E, d), w, b, 1e-5)
+    got = K.ln_edge_stage(*fwd)
+    ref = K.ln_edge_stage_plain(*fwd)
+    torch.cuda.synchronize()
+    out = {"fwd_max_abs_diff": max(
+        float((x - y).abs().max()) for x, y in zip(got, ref)
+        if y is not None)}
+    check(all(y is None or bool(((x - y).abs() <= LN_FWD_ATOL
+                                 + LN_FWD_RTOL * y.abs()).all())
+              for x, y in zip(got, ref)),
+          f"LN edge stage {what}: vs plain (max {out['fwd_max_abs_diff']})")
+    g3, e_out, stats = fwd[0], got[0], got[3]
+    adj = (u, v, randn(n, 2 * d), randn(n, 2 * d), g3, e_out, randn(E, d),
+           stats, w, b)
+    got_a = K.ln_edge_adjoint(*adj)
+    ref_a = K.ln_edge_adjoint_plain(*adj)
+    torch.cuda.synchronize()
+    out["adj_max_abs_diff"] = max(float((x - y).abs().max())
+                                  for x, y in zip(got_a[:3], ref_a[:3]))
+    check(all(bool(((x - y).abs() <= LN_ADJ_ATOL
+                    + LN_ADJ_RTOL * y.abs()).all())
+              for x, y in zip(got_a[:3], ref_a[:3])),
+          f"LN edge adjoint {what}: vs plain (max {out['adj_max_abs_diff']})")
+    if norm:
+        xhat = (g3[:, :d] - stats[:, :1]) * stats[:, 1:]
+        d_y = torch.where(xhat * w + b > 0, ref_a[2], 0.0)
+        prods = torch.stack([d_y * xhat, d_y]).double()
+        want, terms = prods.sum(1), prods.abs().sum(1)
+        rel = float(((got_a[3].double() - want).abs() / terms).max())
+        check(rel <= LN_PARAM_REL,
+              f"LN edge adjoint {what}: parameter sums (rel {rel})")
+        out["param_rel_diff"] = rel
+    else:
+        check(got_a[3] is None, f"LN edge adjoint {what}: no parameter sums")
+    again = K.ln_edge_stage(*fwd), K.ln_edge_adjoint(*adj)
+    check(all((x is None and y is None) or torch.equal(x, y)
+              for x, y in zip((*got, *got_a), (*again[0], *again[1]))),
+          f"LN edge stage and adjoint {what}: bitwise reproducible")
+    return {**out, "args": (fwd, adj)}
+
+
+def ln_stage_times(dev, seed: int, g) -> dict:
+    """The layer-norm edge stage and its adjoint at d = 64 on the golden
+    graph ``g`` (flip=False) and at LN_CELL_ROWS over LN_CELL_NODES (random
+    endpoints), with LayerNorm (timed: each kernel beside its bound and its
+    plain version, which for the forward is the PyTorch chain it
+    replaced) and norm-free; the widths of LN_CHECK_WIDTHS checked on the
+    golden graph."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
+    d = 64
+    u, v, _, _ = g.roles(False)
+    cell = [torch.randint(0, LN_CELL_NODES, (LN_CELL_ROWS,), device=dev,
+                          generator=gen, dtype=torch.int32)
+            for _ in range(2)]
+    out = {}
+    for size, (uu, vv, n) in (("golden", (u, v, g.n_nodes)),
+                              ("cell", (*cell, LN_CELL_NODES))):
+        E = uu.shape[0]
+        for norm in (True, False):
+            r = check_ln_stage(uu, vv, n, d, norm, randn, rand,
+                               f"{size} d={d} norm={norm}")
+            fwd, adj = r.pop("args")
+            if norm:
+                for name, fn, plain, cost in (
+                        ("ln_edge_stage", K.ln_edge_stage,
+                         K.ln_edge_stage_plain, ln_stage_cost(E, d)),
+                        ("ln_edge_adjoint", K.ln_edge_adjoint,
+                         K.ln_edge_adjoint_plain, ln_adjoint_cost(n, E, d))):
+                    args = fwd if name == "ln_edge_stage" else adj
+                    b_ms, b_by = bound(*cost)
+                    t = kernel_times(lambda: fn(*args))
+                    r[name] = {"bound_ms": b_ms, "bound_by": b_by,
+                               "bytes": cost[0], **t,
+                               "share_of_bound": b_ms / t["device_ms"],
+                               "plain_ms": cuda_ms(lambda: plain(*args))}
+            out[f"{size} d={d} norm={norm}"] = {"rows": E, "nodes": n, **r}
+            del fwd, adj
+    for dw in LN_CHECK_WIDTHS:
+        for norm in (True, False):
+            r = check_ln_stage(u, v, g.n_nodes, dw, norm, randn, rand,
+                               f"golden d={dw} norm={norm}")
+            r.pop("args")
+            out[f"golden d={dw} norm={norm}"] = r
+    torch.cuda.empty_cache()
+    out.update(bitwise_reproducible=True, tolerance={
+        "fwd_rtol": LN_FWD_RTOL, "fwd_atol": LN_FWD_ATOL,
+        "adj_rtol": LN_ADJ_RTOL, "adj_atol": LN_ADJ_ATOL,
+        "param_rel": LN_PARAM_REL})
     return out
 
 
@@ -1601,6 +1779,11 @@ def no_edge_checks(dev, d: int = 64) -> dict:
         }
         if dt == torch.float32:
             calls["k2_side_sum"] = ((u, u_csr, edges(d)), (u, edges(d), n))
+            calls["ln_edge_stage"] = ((edges(3 * d), edges(d), bn[2],
+                                       bn[3], 1e-5), None)
+            calls["ln_edge_adjoint"] = ((u, v, dsum, dsum, edges(3 * d),
+                                         edges(d), edges(d), edges(2),
+                                         bn[2], bn[3]), None)
         for name, (args, plain_args) in calls.items():
             fn = K.KERNELS[name]
             plain = getattr(K, f"{name}_plain")
@@ -1856,6 +2039,7 @@ def phase_kernels(seed: int, dev, per_forward: dict):
     wide["bitwise_reproducible"] = True
     out["wide"] = wide
     out["bn_edge_adjoint"] = bn_adjoint_times(dev, seed, torch.float32, E)
+    out["ln_edge_stage"] = ln_stage_times(dev, seed, g)
     out["no_edges"] = {"nodes": NO_EDGE_N,
                        "max_abs_diff": no_edge_checks(dev)}
     emit("kernels", graph={"nodes": N, "edges": E}, d=d, H=H, seed=seed,
@@ -2072,7 +2256,8 @@ def phase_model_unfused_bf16(dev, fwd32: dict):
             return model.init_weights(UNFUSED_INIT_SEED).to(device)
 
         _, _, fwd = card_vs_cpu_forward(
-            graph, new_model, dev, UNFUSED_FORWARD_LAUNCHES, f"{norm} bf16",
+            graph, new_model, dev, UNFUSED_FORWARD_ALL_BF16[norm],
+            f"{norm} bf16",
             dtype=torch.bfloat16, per_forward_bf16=UNFUSED_FORWARD_BF16[norm],
             score_bounds=(UNFUSED_SCORE_COS, UNFUSED_SCORE_DP, SCORE_AP))
         out[norm] = {**fwd, "float32": {k: fwd32[norm][k] for k in (
@@ -2543,7 +2728,8 @@ def phase_train_step(dev, normalization: str = "batch",
             return load_model(params, state, cfg, device)
     else:
         weights = f"init_weights({UNFUSED_INIT_SEED})"
-        want = expected_launches(**UNFUSED_STEP_LAUNCHES)
+        want = expected_launches(**(UNFUSED_STEP_ALL_BF16[normalization]
+                                    if bf16 else UNFUSED_STEP_LAUNCHES))
         want_bf16 = (expected_launches(**UNFUSED_STEP_BF16[normalization])
                      if bf16 else None)
 
@@ -2856,7 +3042,7 @@ def phase_cli_unfused_bf16():
     K.reset_launch_counts()
     best, overfit, train_counts = overfit_run(root, "none", "bfloat16")
     want = expected_launches(**{k: 12 * n for k, n
-                                in UNFUSED_STEP_LAUNCHES.items()})
+                                in K1K2_STEP_LAUNCHES.items()})
     check(train_counts == want == overfit["launches_bf16"],
           f"none bf16 training launches {train_counts}, of them bf16 "
           f"{overfit['launches_bf16']}")
@@ -2874,7 +3060,7 @@ def phase_cli_unfused_bf16():
     infer_counts = K.launch_counts()
     infer_bf16 = K.launch_counts(torch.bfloat16)
     check(summary["device"].startswith("cuda"), "infer ran on the card")
-    check(infer_counts == expected_launches(**UNFUSED_FORWARD_LAUNCHES)
+    check(infer_counts == expected_launches(**K1K2_FORWARD_LAUNCHES)
           == infer_bf16,
           f"none bf16 eval-path launches {infer_counts}, of them bf16 "
           f"{infer_bf16}")
@@ -3466,7 +3652,7 @@ def sharded_few_jobs(dev) -> list:
 def sharded_launches(mid: str) -> dict:
     name = SHARDED_MODELS[mid][0]
     if name == "sym_gatedgcn":
-        return UNFUSED_FORWARD_LAUNCHES
+        return K1K2_FORWARD_LAUNCHES
     return {"k2_side_sum": ZOO_FORWARD_SIDE_SUMS[name]}
 
 
@@ -3602,7 +3788,7 @@ def phase_sharded(dev, layer_run: dict, few_res: list) -> dict:
           "cli infer compute.mesh=2: phase 8's FASTA byte for byte")
     launches = summary["rank_launches"]
     check(summary["ranks"] == 2 and all(
-        c == expected_launches(**UNFUSED_FORWARD_LAUNCHES)
+        c == expected_launches(**K1K2_FORWARD_LAUNCHES)
         for c in launches), f"cli infer mesh=2 launches {launches}")
     for r, c in enumerate(launches):
         paths[f"infer_sharded_rank{r}"] = c
@@ -4156,6 +4342,30 @@ def main(argv=None) -> int:
                  "bfloat16": {
                      "launches": paths["train_bf16"]["bn_edge_adjoint"],
                      **adjoint_times(kb["bn_edge_adjoint"])}})
+    # the layer-norm edge stage and its adjoint replace no pallas_call but
+    # the XLA chain between JAX's K1 and K2 (sym_gated_gcn.py:149-172); at
+    # d = 64 on the golden graph and at the benchmark cell's edge rows
+    ln = k["ln_edge_stage"]
+    for name in ("ln_edge_stage", "ln_edge_adjoint"):
+        t = ln["golden d=64 norm=True"][name]
+        cell = ln["cell d=64 norm=True"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gnnome_tpu_torch/csrc/ln_edge_stage.cu",
+            "replaces": "gnnome_tpu/models/sym_gated_gcn.py:149-172 (XLA)",
+            "launches": paths["train_layer"][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": max(
+                r["fwd_max_abs_diff" if name == "ln_edge_stage"
+                  else "adj_max_abs_diff"]
+                for r in ln.values() if isinstance(r, dict)
+                and "fwd_max_abs_diff" in r),
+            "width": 64, "ms": t["device_ms"], "call_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "cell_rows": cell["rows"], "cell_ms": cell[name]["device_ms"],
+            "cell_bound_ms": cell[name]["bound_ms"],
+            "dtypes": ["float32"]})
     # the probes lie on no path: their launches since the probes phase
     # (every path after it, those this process runs), which must be none
     probe_launches = probes.launch_counts()

@@ -27,10 +27,15 @@ its mask from the caller's ``torch.Generator``.
 
 Layer norm and none run the JAX package's unfused layer
 (sym_gated_gcn.py:149-172,215-258), the same in eval and training: the
-fused projection and ``b3e``, the endpoint gathers and gate in K1
-(``gate_gather``), the norm, relu, residual, sigmoid, both gated means in
-one K2 (``gated_mean_pair``), ``A1h + h_fwd + h_bwd``, the norm, relu,
-residual, and dropout in training.
+fused projection and ``b3e``, the endpoint gathers and gate in K1, the
+norm, relu, residual, sigmoid, both gated means' sums in one K2,
+``A1h + h_fwd + h_bwd``, the norm, relu, residual, and dropout in
+training.  The edge stage from K1 to K2 takes one of two routes, by the
+dtype of K1's operands: float32 runs ``unfused_edge_stage`` (one autograd
+Function: K1, the layer-norm edge stage kernel, K2; backward its adjoint
+kernel and K2), bf16 the chain of ``gate_gather``, ``apply_norm``, relu,
+residual, sigmoid and ``gated_mean_pair``, which keeps the JAX package's
+type promotion (the table below).
 
 Both symmetry-loss passes at once (``forward_dual``, batch norm only; JAX
 ``forward_dual``, sym_gated_gcn.py:290-402): node states ``[N, 2d]`` =
@@ -86,10 +91,10 @@ from torch import nn
 from ..ops.graph_tensors import DeviceGraph
 from ..ops.message import (blocks_linear, eval_edge_stage, gate_gather,
                            gated_mean_pair, gather_uv, score_gate,
-                           train_edge_stage)
+                           train_edge_stage, unfused_edge_stage)
 from ..utils.timing import span
 from .nn import dropout, mlp2
-from .norm import (apply_norm, batch_norm_dual, batch_norm_eval,
+from .norm import (LN_EPS, apply_norm, batch_norm_dual, batch_norm_eval,
                    batch_norm_rows, batch_norm_train, update_running_stats)
 
 GATE_EPS = 1e-6  # gated-mean denominator epsilon (reference gated_gcn_full.py:114)
@@ -239,12 +244,22 @@ class SymGatedGCNLayer(nn.Module):
                          drop_rate: float, generator, dtype=None):
         d = h.shape[1]
         proj = self._projection(h, dtype)
-        g3 = gate_gather(g, flip, proj[:, :2 * d], proj[:, 2 * d:4 * d],
-                         _linear(self.B_3, e, dtype))
-        e_out = torch.relu(apply_norm(self.bn_e, g3[:, :d])) + e
-        h_fwd, h_bwd = gated_mean_pair(g, flip, torch.sigmoid(e_out),
-                                       g3[:, d:2 * d], g3[:, 2 * d:],
-                                       GATE_EPS)
+        proj_u, proj_v = proj[:, :2 * d], proj[:, 2 * d:4 * d]
+        b3e = _linear(self.B_3, e, dtype)
+        if proj.dtype == torch.bfloat16:
+            g3 = gate_gather(g, flip, proj_u, proj_v, b3e)
+            e_out = torch.relu(apply_norm(self.bn_e, g3[:, :d])) + e
+            h_fwd, h_bwd = gated_mean_pair(g, flip, torch.sigmoid(e_out),
+                                           g3[:, d:2 * d], g3[:, 2 * d:],
+                                           GATE_EPS)
+        else:
+            ln = self.bn_e
+            e_out, sum_u, sum_v = unfused_edge_stage(
+                g, flip, proj_u, proj_v, b3e, e,
+                None if ln is None else ln.weight,
+                None if ln is None else ln.bias, LN_EPS)
+            h_fwd = sum_v[:, :d] / (sum_v[:, d:] + GATE_EPS)
+            h_bwd = sum_u[:, :d] / (sum_u[:, d:] + GATE_EPS)
         h_new = proj[:, 4 * d:] + h_fwd + h_bwd
         h_new = torch.relu(apply_norm(self.bn_h, h_new)) + h
         if drop_rate > 0.0:

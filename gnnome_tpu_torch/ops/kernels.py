@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels K1, K2, K3, K6, K7, K8, K9 and the batch-norm
-edge adjoint, their plain PyTorch versions, and the build that turns
-``csrc/*.cu`` into one shared library.
+"""Hand-written CUDA kernels K1, K2, K3, K6, K7, K8, K9, the batch-norm
+edge adjoint and the layer-norm edge stage and its adjoint, their plain
+PyTorch versions, and the build that turns ``csrc/*.cu`` into one shared
+library.
 
 K3 (edge stage) and K6 (score gate) carry the batch-norm model's forward;
 K7 (gate batch statistics), K8 (edge-stage adjoint), the batch-norm edge
@@ -8,9 +9,12 @@ adjoint (``bn_edge_adjoint``: the per-edge end of the batch-statistics
 chain, after K8) and K9 (score-gate adjoint) carry its training.  K1
 (endpoint gathers and gate) and K2 (two-sided aggregation) carry the
 layer-norm and norm-free model, forward and backward (``ops/message.py``
-wraps them in ``torch.autograd.Function``s).  ``k2_side_sum``, one side
-of K2's walk as its own entry, carries the model zoo's reductions into
-nodes.
+wraps them in ``torch.autograd.Function``s); between them, in float32, the
+layer-norm edge stage (``ln_edge_stage``: LayerNorm, relu, residual,
+sigmoid and K2's payloads in one pass) and its adjoint
+(``ln_edge_adjoint``), the norm-free model's too with the normalisation
+left out.  ``k2_side_sum``, one side of K2's walk as its own entry,
+carries the model zoo's reductions into nodes.
 
 K1, K2, K3, K6, K7, K8, K9 and the edge adjoint run in float32 or
 bfloat16 (the JAX package's ``compute.dtype=bfloat16``): each kernel has a
@@ -18,7 +22,9 @@ bf16 instantiation, chosen by the ``bf16`` flag its C entry takes from the
 tensors' dtype, that reads and writes bf16 rows, computes in float32 and
 rounds where the JAX bf16 kernel rounds; its plain version does the same
 operations on bf16 tensors.  K2 and K9 sum bf16 payloads into float32
-node sums.  The one-sided K2 walk (the zoo) takes float32 only.
+node sums.  The one-sided K2 walk (the zoo) and the layer-norm edge stage
+and its adjoint take float32 only (bf16 operands keep the PyTorch chain,
+``models/sym_gated_gcn.py``).
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  With no edges (E =
@@ -60,7 +66,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
 SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
            "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
-           "k9_aggregate.cu", "bn_edge_adjoint.cu")
+           "k9_aggregate.cu", "bn_edge_adjoint.cu", "ln_edge_stage.cu")
 HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh",
            "k3_edge_stage.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -197,6 +203,18 @@ def _library():
             lib.gn_bn_edge_adjoint.argtypes = [
                 L, I, P, P, P, P,            # n_rows, w, x, d_eo, bn, sc
                 P, I, P]                     # out, bf16, stream
+            lib.gn_ln_edge_stage.restype = I
+            lib.gn_ln_edge_stage.argtypes = [
+                L, I, ctypes.c_float,        # n_rows, d, eps
+                P, P, P, P,                  # g3, e_in, weight, bias
+                P, P, P, P, P]               # e_out, pay_u, pay_v, stats, stream
+            lib.gn_ln_edge_adjoint_blocks.restype = I
+            lib.gn_ln_edge_adjoint_blocks.argtypes = [L]
+            lib.gn_ln_edge_adjoint.restype = I
+            lib.gn_ln_edge_adjoint.argtypes = [
+                L, I, P, P, P, P,            # n_rows, d, u_idx, v_idx, d_sum_u, d_sum_v
+                P, P, P, P, P, P,            # g3, e_out, d_e_out, stats, weight, bias
+                P, P, P, P, P, P]            # pay_u, pay_v, d_e, partials, d_wb, stream
             lib.gn_cuda_error_string.restype = ctypes.c_char_p
             lib.gn_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -802,12 +820,175 @@ def bn_edge_adjoint(x, d_eo, bn, sc):
     return out
 
 
+# ---------------------------------------------------- layer-norm edge stage
+def ln_edge_stage_plain(g3, e_in, weight, bias, eps: float):
+    """Plain PyTorch layer-norm edge stage: ``(e_out [E, d], pay_u [E, 2d],
+    pay_v [E, 2d], stats [E, 2] or None)`` from K1's ``g3`` = [gate | A2h[u]
+    | A3h[v]] ([E, 3d]) and ``e_in`` [E, d]: the LayerNorm of the gate in
+    the JAX package's form (two-pass row mean and biased variance, ``(x -
+    mean) * rsqrt(var + eps) * weight + bias``; ``weight`` None: the
+    norm-free stage, no normalisation), relu, the residual ``+ e_in``,
+    ``sigma = sigmoid(e_out)`` and K2's payloads ``[sigma * A3h[v] |
+    sigma]`` (summed into u) and ``[sigma * A2h[u] | sigma]`` (into v);
+    ``stats`` the rows' ``[mean, rsqrt(var + eps)]``.  The operations of the
+    unfused layer's PyTorch chain (``models/norm.layer_norm``), so the two
+    agree bit for bit."""
+    d = e_in.shape[1]
+    x, a2, a3 = g3[:, :d], g3[:, d:2 * d], g3[:, 2 * d:]
+    stats = None
+    if weight is not None:
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        x = (x - mean) * rstd * weight + bias
+        stats = torch.cat([mean, rstd], 1)
+    e_out = torch.relu(x) + e_in
+    sigma = torch.sigmoid(e_out)
+    return (e_out, torch.cat([sigma * a3, sigma], 1),
+            torch.cat([sigma * a2, sigma], 1), stats)
+
+
+def ln_edge_stage(g3, e_in, weight, bias, eps: float):
+    """The layer-norm edge stage (csrc/ln_edge_stage.cu
+    ``ln_edge_stage_kernel``): one pass over the rows of ``g3`` and
+    ``e_in`` in place of the plain version's elementwise passes.  float32,
+    every tensor contiguous; ``weight`` and ``bias`` [d], or both None (the
+    norm-free stage); d at most 512 (128 where d % 4 != 0).  Returns what
+    ``ln_edge_stage_plain`` returns; the row sums add in another order than
+    ``torch.mean``, so the normalised values differ from it by rounding."""
+    if g3.device.type == "cpu":
+        return ln_edge_stage_plain(g3, e_in, weight, bias, eps)
+    if g3.device.type != "cuda":
+        raise ValueError(f"LN edge stage: unsupported device {g3.device}")
+    dev = g3.device
+    E, d = e_in.shape
+    _check("g3", g3, torch.float32, (E, 3 * d), dev)
+    _check("e_in", e_in, torch.float32, (E, d), dev)
+    if (weight is None) != (bias is None):
+        raise ValueError("LN edge stage: weight and bias, or neither")
+    if weight is not None:
+        _check("weight", weight, torch.float32, (d,), dev)
+        _check("bias", bias, torch.float32, (d,), dev)
+    e_out = torch.empty_like(e_in)
+    pay_u = torch.empty((E, 2 * d), dtype=torch.float32, device=dev)
+    pay_v = torch.empty((E, 2 * d), dtype=torch.float32, device=dev)
+    stats = (None if weight is None else
+             torch.empty((E, 2), dtype=torch.float32, device=dev))
+    if E == 0:
+        return e_out, pay_u, pay_v, stats
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_ln_edge_stage(
+            E, d, eps, _ptr(g3), _ptr(e_in), _ptr(weight), _ptr(bias),
+            _ptr(e_out), _ptr(pay_u), _ptr(pay_v), _ptr(stats),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "LN edge stage")
+    _count(ln_edge_stage, torch.float32)
+    return e_out, pay_u, pay_v, stats
+
+
+def ln_edge_adjoint_plain(u_idx, v_idx, d_sum_u, d_sum_v, g3, e_out, d_e_out,
+                          stats, weight, bias):
+    """Plain PyTorch adjoint of the layer-norm edge stage and of K2's sums
+    of its payloads: ``(pay_u [E, 2d], pay_v [E, 2d], d_e [E, d], d_wb [2,
+    d] or None)``.  ``d_sum_u`` / ``d_sum_v`` [N, 2d] are the cotangents of
+    K2's sums, gathered here at ``u_idx`` / ``v_idx``; ``g3``, ``e_out`` and
+    ``stats`` the forward's.  ``d_e = d_e_out + d_sigma * sigma * (1 -
+    sigma)`` is the cotangent of e_out and, through the residual, of the
+    edge state; the relu mask is recomputed from ``g3`` and ``stats`` with
+    the forward's operations; the LayerNorm row adjoint is ``((g - mean(g))
+    - xhat * mean(g * xhat)) * rstd`` with ``g = d_y * weight``.  The
+    payloads are K1's adjoint: ``[d_gate | sigma * d_sum_v[v][:d]]`` into u,
+    ``[d_gate | sigma * d_sum_u[u][:d]]`` into v.  ``d_wb`` = [sum d_y *
+    xhat | sum d_y] over the rows, the gradients of ``weight`` and ``bias``
+    (None for the norm-free stage, whose d_gate is d_e where the gate is
+    positive)."""
+    d = e_out.shape[1]
+    x, a2, a3 = g3[:, :d], g3[:, d:2 * d], g3[:, 2 * d:]
+    du = d_sum_u.index_select(0, u_idx)
+    dv = d_sum_v.index_select(0, v_idx)
+    sigma = torch.sigmoid(e_out)
+    d_sigma = ((dv[:, :d] * a2 + dv[:, d:]) + du[:, :d] * a3) + du[:, d:]
+    d_e = d_e_out + (d_sigma * sigma) * (1.0 - sigma)
+    zero = torch.zeros_like(d_e)
+    d_wb = None
+    if weight is None:
+        d_gate = torch.where(x > 0, d_e, zero)
+    else:
+        mean, rstd = stats[:, :1], stats[:, 1:]
+        xhat = (x - mean) * rstd
+        d_y = torch.where(xhat * weight + bias > 0, d_e, zero)
+        g = d_y * weight
+        d_gate = ((g - g.sum(1, keepdim=True) / d)
+                  - xhat * ((g * xhat).sum(1, keepdim=True) / d)) * rstd
+        d_wb = torch.stack([(d_y * xhat).sum(0), d_y.sum(0)])
+    return (torch.cat([d_gate, sigma * dv[:, :d]], 1),
+            torch.cat([d_gate, sigma * du[:, :d]], 1), d_e, d_wb)
+
+
+def ln_edge_adjoint(u_idx, v_idx, d_sum_u, d_sum_v, g3, e_out, d_e_out,
+                    stats, weight, bias):
+    """The layer-norm edge stage's adjoint (csrc/ln_edge_stage.cu
+    ``ln_edge_adjoint_kernel``, then ``ln_param_sums`` for ``d_wb``): one
+    pass over the edge rows that gathers the cotangent rows itself.
+    float32, every tensor contiguous; ``stats``, ``weight`` and ``bias``
+    None for the norm-free stage.  Returns what ``ln_edge_adjoint_plain``
+    returns; its row sums and the parameter sums (float64 block sums added
+    in a fixed order) add in another order, so they differ from it by
+    rounding, and repeat bit for bit."""
+    if g3.device.type == "cpu":
+        return ln_edge_adjoint_plain(u_idx, v_idx, d_sum_u, d_sum_v, g3,
+                                     e_out, d_e_out, stats, weight, bias)
+    if g3.device.type != "cuda":
+        raise ValueError(f"LN edge adjoint: unsupported device {g3.device}")
+    dev = g3.device
+    E, d = e_out.shape
+    n = d_sum_u.shape[0]
+    _check("g3", g3, torch.float32, (E, 3 * d), dev)
+    for name, t in (("e_out", e_out), ("d_e_out", d_e_out)):
+        _check(name, t, torch.float32, (E, d), dev)
+    for name, t in (("d_sum_u", d_sum_u), ("d_sum_v", d_sum_v)):
+        _check(name, t, torch.float32, (n, 2 * d), dev)
+    for name, t in (("u_idx", u_idx), ("v_idx", v_idx)):
+        _check(name, t, torch.int32, (E,), dev)
+    norm = weight is not None
+    if not norm and (stats is not None or bias is not None):
+        raise ValueError("LN edge adjoint: stats, weight and bias, or none")
+    if norm:
+        _check("stats", stats, torch.float32, (E, 2), dev)
+        _check("weight", weight, torch.float32, (d,), dev)
+        _check("bias", bias, torch.float32, (d,), dev)
+    pay_u = torch.empty((E, 2 * d), dtype=torch.float32, device=dev)
+    pay_v = torch.empty((E, 2 * d), dtype=torch.float32, device=dev)
+    d_e = torch.empty_like(e_out)
+    if E == 0:
+        return (pay_u, pay_v, d_e,
+                torch.zeros((2, d), dtype=torch.float32, device=dev) if norm
+                else None)
+    d_wb = (torch.empty((2, d), dtype=torch.float32, device=dev) if norm
+            else None)
+    lib = _library()
+    partials = (torch.empty((lib.gn_ln_edge_adjoint_blocks(E), 2 * d),
+                            dtype=torch.float64, device=dev) if norm
+                else None)
+    with torch.cuda.device(dev):
+        rc = lib.gn_ln_edge_adjoint(
+            E, d, _ptr(u_idx), _ptr(v_idx), _ptr(d_sum_u), _ptr(d_sum_v),
+            _ptr(g3), _ptr(e_out), _ptr(d_e_out), _ptr(stats), _ptr(weight),
+            _ptr(bias), _ptr(pay_u), _ptr(pay_v), _ptr(d_e), _ptr(partials),
+            _ptr(d_wb), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "LN edge adjoint")
+    _count(ln_edge_adjoint, torch.float32)
+    return pay_u, pay_v, d_e, d_wb
+
+
 # ------------------------------------------------------------ launch counting
 KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
            "k2_side_sum": k2_side_sum, "k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
            "k7_gate_stats": k7_gate_stats,
            "k8_train_layer_bwd": k8_train_layer_bwd,
-           "k9_aggregate": k9_aggregate, "bn_edge_adjoint": bn_edge_adjoint}
+           "k9_aggregate": k9_aggregate, "bn_edge_adjoint": bn_edge_adjoint,
+           "ln_edge_stage": ln_edge_stage, "ln_edge_adjoint": ln_edge_adjoint}
 for _fn in KERNELS.values():
     _fn.launches = _fn.launches_bf16 = 0
 

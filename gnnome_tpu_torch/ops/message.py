@@ -14,9 +14,11 @@ patching.
 Every op is differentiable through a ``torch.autograd.Function`` whose
 backward is a kernel too, as in the JAX package: ``train_edge_stage``
 (forward K7 + K3, backward K8 and the batch-norm edge adjoint),
-``score_gate`` (K6, backward K9), ``gate_gather`` (K1, backward K2), the
-aggregation under ``gated_mean_pair`` (K2, backward two row gathers) and
-``gather_uv`` (row gathers, backward K2).  Every reduction into nodes walks
+``score_gate`` (K6, backward K9), ``unfused_edge_stage`` (forward K1, the
+layer-norm edge stage and K2; backward its adjoint and K2),
+``gate_gather`` (K1, backward K2), the aggregation under
+``gated_mean_pair`` (K2, backward two row gathers) and ``gather_uv`` (row
+gathers, backward K2).  Every reduction into nodes walks
 a sorted segment inside a kernel, so a training step is bitwise
 reproducible on the card; no gather with repeated indices is left to
 autograd (its backward would be an atomic ``index_add_``).
@@ -34,8 +36,8 @@ import torch
 from .graph_tensors import DeviceGraph
 from .kernels import (bn_edge_adjoint, k1_gather_gate, k2_aggregate,
                       k2_side_sum, k3_edge_stage, k6_score_gate,
-                      k7_gate_stats, k8_train_layer_bwd, k9_aggregate, wide,
-                      wide_dtype)
+                      k7_gate_stats, k8_train_layer_bwd, k9_aggregate,
+                      ln_edge_adjoint, ln_edge_stage, wide, wide_dtype)
 
 BN_EPS = 1e-5
 
@@ -257,6 +259,65 @@ def score_gate(g: DeviceGraph, flip: bool, puv, be):
 
 
 # ------------------------------------------------------------ unfused layer
+class _UnfusedEdgeStage(torch.autograd.Function):
+    """See ``unfused_edge_stage``.  Saved: K1's ``g3``, the rows' LayerNorm
+    statistics and ``e_out`` (which the next layer's B3 product keeps
+    anyway); nothing else edge-sized."""
+
+    @staticmethod
+    def forward(ctx, g, flip, proj_u, proj_v, b3e, e, weight, bias, eps):
+        u_idx, v_idx, v_csr, u_csr = g.roles(flip)
+        g3 = k1_gather_gate(u_idx, v_idx, proj_u, proj_v, b3e)
+        e_out, pay_u, pay_v, stats = ln_edge_stage(g3, e.contiguous(),
+                                                   weight, bias, eps)
+        sum_u, sum_v = k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v)
+        ctx.g, ctx.flip = g, flip
+        ctx.save_for_backward(g3, e_out, stats, weight, bias)
+        return e_out, sum_u, sum_v
+
+    @staticmethod
+    def backward(ctx, d_e_out, d_sum_u, d_sum_v):
+        g3, e_out, stats, weight, bias = ctx.saved_tensors
+        u_idx, v_idx, v_csr, u_csr = ctx.g.roles(ctx.flip)
+        d = e_out.shape[1]
+        zero_n = g3.new_zeros((ctx.g.n_nodes, 2 * d))
+        d_e_out = (torch.zeros_like(e_out) if d_e_out is None
+                   else d_e_out.contiguous())
+        d_sum_u = zero_n if d_sum_u is None else d_sum_u.contiguous()
+        d_sum_v = zero_n if d_sum_v is None else d_sum_v.contiguous()
+        pay_u, pay_v, d_e, d_wb = ln_edge_adjoint(
+            u_idx, v_idx, d_sum_u, d_sum_v, g3, e_out, d_e_out, stats,
+            weight, bias)
+        # K1's adjoint: [d_gate | d_a2h] into u, [d_gate | d_a3h] into v
+        d_pu, d_pv = k2_aggregate(u_idx, v_idx, v_csr, u_csr, pay_u, pay_v)
+        d_w, d_b = (None, None) if d_wb is None else (d_wb[0], d_wb[1])
+        return (None, None, d_pu, d_pv, pay_u[:, :d], d_e, d_w, d_b, None)
+
+
+def unfused_edge_stage(g: DeviceGraph, flip: bool, proj_u, proj_v, b3e, e,
+                       weight, bias, eps: float):
+    """The unfused layer's edge stage from K1 to K2's sums, float32, as one
+    autograd Function: K1 (``gate_gather``'s ``g3`` = [gate | A2h[u] |
+    A3h[v]]), the layer-norm edge stage (``ln_edge_stage``: LayerNorm of
+    the gate with ``weight``, ``bias`` and ``eps``, relu, ``e_out =
+    relu(.) + e``, ``sigma = sigmoid(e_out)`` and the payloads), and one K2:
+    returns ``(e_out [E, d], sum_u [N, 2d], sum_v [N, 2d])`` with ``sum_u``
+    the sums of ``[sigma * A3h[v] | sigma]`` into u and ``sum_v`` of
+    ``[sigma * A2h[u] | sigma]`` into v, float32 (the gated means divide
+    them).  ``weight`` and ``bias`` None: the norm-free layer.  The
+    operations of ``gate_gather``, ``apply_norm``, relu, the residual,
+    sigmoid and ``gated_mean_pair``'s sums (JAX sym_gated_gcn.py:149-172).
+
+    The backward runs the stage's adjoint (``ln_edge_adjoint``: the
+    cotangent rows of K2's sums gathered, sigmoid, residual, relu and the
+    LayerNorm row adjoint, K1's adjoint payloads, the LayerNorm parameters'
+    sums) and K2 for K1's adjoint (``d_b3e`` is ``d_gate``).  float32 (and
+    float64 on the CPU); bf16 operands take ``gate_gather`` and
+    ``gated_mean_pair`` (the layer chooses)."""
+    return _UnfusedEdgeStage.apply(g, flip, proj_u, proj_v, b3e, e, weight,
+                                   bias, eps)
+
+
 class _GateGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g, flip, proj_u, proj_v, b3e):

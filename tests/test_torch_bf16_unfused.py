@@ -409,7 +409,9 @@ def _flow_port(monkeypatch, small, norm):
     assert lo.dtype == F32
     lo.sum().backward()
     names = {"_Aggregate.forward": "forward",
+             "_UnfusedEdgeStage.forward": "forward",
              "_GateGather.backward": "k1_adjoint",
+             "_UnfusedEdgeStage.backward": "k1_adjoint",
              "_GatherUV.backward": "gather_adjoint"}
     rec["k2"] = [(names[c], a, b) for c, a, b in rec["k2"]]
     return rec

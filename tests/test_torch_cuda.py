@@ -1,7 +1,8 @@
-"""The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8, K9 and
-the batch-norm edge adjoint against their plain PyTorch versions, on the
-card, and two card train steps from one state bitwise equal (batch norm,
-layer norm, two zoo models), the halo path's forward at two ranks on the
+"""The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8, K9,
+the batch-norm edge adjoint and the layer-norm edge stage and its adjoint
+against their plain PyTorch versions, on the card, and two card train
+steps from one state bitwise equal (batch norm, layer norm, none, two zoo
+models), the halo path's forward at two ranks on the
 card against the single-device one, and the entry points of ``entry.py``
 (``entry``, a 2-rank ``dryrun_multichip``).  Every test here is
 ``cuda``-marked and skips where no GPU is present.
@@ -320,12 +321,17 @@ def test_k9_kernel_vs_plain(graphs, cuda, flip, h, which, layout):
     ("batch", {"k3_edge_stage": 16, "k6_score_gate": 2, "k7_gate_stats": 16,
                "k8_train_layer_bwd": 16, "bn_edge_adjoint": 16,
                "k9_aggregate": 2}),
-    ("layer", {"k1_gather_gate": 32, "k2_aggregate": 68})])
+    ("layer", {"k1_gather_gate": 32, "k2_aggregate": 68,
+               "ln_edge_stage": 32, "ln_edge_adjoint": 32}),
+    ("none", {"k1_gather_gate": 32, "k2_aggregate": 68,
+              "ln_edge_stage": 32, "ln_edge_adjoint": 32})])
 def test_two_card_train_steps_bitwise_equal(cuda, norm, launches):
     """Two train steps from one state (weights, data, dropout seed) give the
     same loss, logits, gradients and parameters after Adam, bit for bit,
     and launch only the kernels of the model's path (two 8-layer steps;
-    batch norm runs both symmetry passes as one dual-width pass)."""
+    batch norm runs both symmetry passes as one dual-width pass; layer
+    norm and none run the edge stage and its adjoint once a layer and
+    pass)."""
     import numpy as np
 
     from gnnome_tpu_torch.config import Config
@@ -358,6 +364,86 @@ def test_two_card_train_steps_bitwise_equal(cuda, norm, launches):
     assert torch.equal(l0, l1) and torch.equal(lo0, lo1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+# The layer-norm edge stage and its adjoint (float32 only), with LayerNorm
+# and norm-free: on the assembly graph at d = 6 (one feature a lane), 16 (4
+# lanes of float4 a row), 64 (16 lanes), 96 (24 of a team of 32) and 200
+# (two vectors a lane), on the hub graph at 16 and 64, and at the
+# layer-norm cell's size (1.21M edge rows over 262,144 nodes, random
+# endpoints) at 64.  Tolerances: the forward's row mean and variance add
+# in another order than torch.mean, so e_out, the payloads and [mean, rstd]
+# are within rtol=1e-5, atol=1e-5 of the plain version (float32 rounding
+# of the normalised values; a relu mask that flips does so where y is
+# within rounding of 0, so e_out moves by no more).  The adjoint, fed the
+# same g3, e_out and statistics as its plain version (so its recomputed
+# relu mask is the same, bit for bit), is within rtol=1e-4, atol=1e-5 of
+# it (its two row sums in another order), d_weight and d_bias within 1e-5
+# of the summed magnitudes of their float32 terms of the sums taken in
+# float64 (the kernel adds them in float64 blocks, the plain version in
+# float32).
+LN_CASES = ([("assembly", d) for d in (6, 16, 64, 96, 200)]
+            + [("hub", 16), ("hub", 64), ("cell", 64)])
+LN_CELL_EDGES, LN_CELL_NODES = 1_210_000, 262_144
+
+
+def _ln_inputs(graphs, cuda, which, d, norm, flip):
+    gen = torch.Generator(device=cuda).manual_seed(40 + d)
+    if which == "cell":
+        n, E = LN_CELL_NODES, LN_CELL_EDGES
+        u, v = (torch.randint(0, n, (E,), device=cuda, generator=gen,
+                              dtype=torch.int32) for _ in range(2))
+    else:
+        g = graphs[which]
+        n, E = g.n_nodes, g.n_edges
+        u, v, _, _ = g.roles(flip)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    w = torch.rand(d, device=cuda, generator=gen) + 0.5 if norm else None
+    b = randn(d) * 0.1 if norm else None
+    return dict(u=u, v=v, g3=randn(E, 3 * d), e_in=randn(E, d), w=w, b=b,
+                d_e_out=randn(E, d), d_sum_u=randn(n, 2 * d),
+                d_sum_v=randn(n, 2 * d))
+
+
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("which,d", LN_CASES)
+def test_ln_edge_stage_kernels_vs_plain(graphs, cuda, which, d, norm):
+    t = _ln_inputs(graphs, cuda, which, d, norm, flip=which == "hub")
+    fwd = (t["g3"], t["e_in"], t["w"], t["b"], 1e-5)
+    n0, a0 = K.ln_edge_stage.launches, K.ln_edge_adjoint.launches
+    got = K.ln_edge_stage(*fwd)
+    assert K.ln_edge_stage.launches == n0 + 1
+    ref = K.ln_edge_stage_plain(*fwd)
+    torch.cuda.synchronize()
+    assert (got[3] is None) == (not norm)
+    for x, y in zip(got, ref):
+        if y is not None:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+    e_out, _, _, stats = got
+    adj = (t["u"], t["v"], t["d_sum_u"], t["d_sum_v"], t["g3"], e_out,
+           t["d_e_out"], stats, t["w"], t["b"])
+    got_a = K.ln_edge_adjoint(*adj)
+    assert K.ln_edge_adjoint.launches == a0 + 1
+    ref_a = K.ln_edge_adjoint_plain(*adj)
+    torch.cuda.synchronize()
+    for x, y in zip(got_a[:3], ref_a[:3]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+    if norm:
+        x, mean, rstd = t["g3"][:, :d], stats[:, :1], stats[:, 1:]
+        xhat = (x - mean) * rstd
+        d_y = torch.where(xhat * t["w"] + t["b"] > 0, ref_a[2], 0.0)
+        prods = torch.stack([d_y * xhat, d_y]).double()
+        want, terms = prods.sum(1), prods.abs().sum(1)
+        assert bool(((got_a[3].double() - want).abs()
+                     <= 1e-5 * terms + 1e-6).all())
+    else:
+        assert got_a[3] is None
+    again = K.ln_edge_stage(*fwd), K.ln_edge_adjoint(*adj)
+    for x, y in zip((*got, *got_a), (*again[0], *again[1])):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 @pytest.mark.parametrize("which", ["assembly", "hub", "tiny"])
@@ -661,15 +747,18 @@ def test_k2_bf16_kernel_vs_cpu_plain(graphs, cuda, flip, width, which):
     assert all(torch.equal(p, q) for p, q in zip(got, again))
 
 
-@pytest.mark.parametrize("norm,bf16_launches", [
-    ("none", {"k1_gather_gate": 32, "k2_aggregate": 68}),
-    ("layer", {"k1_gather_gate": 4, "k2_aggregate": 4})])
+@pytest.mark.parametrize("norm,bf16_launches,stages", [
+    ("none", {"k1_gather_gate": 32, "k2_aggregate": 68}, 0),
+    ("layer", {"k1_gather_gate": 4, "k2_aggregate": 4}, 28)])
 def test_two_card_unfused_bf16_train_steps_bitwise_equal(cuda, norm,
-                                                         bf16_launches):
+                                                         bf16_launches,
+                                                         stages):
     """Two layer-norm or norm-free train steps at compute.dtype=bfloat16
     from one state: bitwise equal, 32 K1 and 68 K2 over the two 8-layer
     steps, of them in bf16 every one (none) or those of the first layer and
-    K1's adjoint there (layer norm, float32 from its first norms on)."""
+    K1's adjoint there (layer norm, float32 from its first norms on, whose
+    float32 layers 2-8 run the layer-norm edge stage and its adjoint:
+    ``stages`` of each)."""
     import numpy as np
 
     from gnnome_tpu_torch.config import Config
@@ -699,7 +788,8 @@ def test_two_card_unfused_bf16_train_steps_bitwise_equal(cuda, norm,
                      [p.detach().clone() for p in model.parameters()]))
     zero = {k: 0 for k in K.KERNELS}
     assert K.launch_counts() == {**zero, "k1_gather_gate": 32,
-                                 "k2_aggregate": 68}
+                                 "k2_aggregate": 68, "ln_edge_stage": stages,
+                                 "ln_edge_adjoint": stages}
     assert K.launch_counts(torch.bfloat16) == {**zero, **bf16_launches}
     (l0, lo0, g0, p0), (l1, lo1, g1, p1) = outs
     assert lo0.dtype == torch.float32 and torch.isfinite(lo0).all()

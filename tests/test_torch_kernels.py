@@ -287,7 +287,8 @@ def test_wrappers_count_only_kernel_launches(graphs):
     assert set(K.KERNELS) == {"k1_gather_gate", "k2_aggregate",
                               "k2_side_sum", "k3_edge_stage", "k6_score_gate",
                               "k7_gate_stats", "k8_train_layer_bwd",
-                              "k9_aggregate", "bn_edge_adjoint"}
+                              "k9_aggregate", "bn_edge_adjoint",
+                              "ln_edge_stage", "ln_edge_adjoint"}
 
 
 # ------------------------------------------------------- training functions
@@ -572,17 +573,30 @@ def _no_edge_call(name, dt):
                          [zeros(n, 2 * d, t=f32)]),
         "bn_edge_adjoint": (lambda: K.bn_edge_adjoint(
             edges(d), edges(d), bn, zeros(3, d, t=f32)), [edges(d)]),
+        "ln_edge_stage": (lambda: K.ln_edge_stage(
+            edges(3 * d), edges(d), bn[2], bn[3], 1e-5),
+            [edges(d), edges(2 * d), edges(2 * d), edges(2)]),
+        "ln_edge_adjoint": (
+            lambda: K.ln_edge_adjoint(u, v, zeros(n, 2 * d), zeros(n, 2 * d),
+                                      edges(3 * d), edges(d), edges(d),
+                                      edges(2), bn[2], bn[3]),
+            [edges(2 * d), edges(2 * d), edges(d), zeros(2, d)]),
     }[name]
+
+
+# float32 only: the one-sided walk (the zoo ignores the compute dtype) and
+# the layer-norm edge stage and its adjoint (bf16 keeps the PyTorch chain)
+FLOAT32_ONLY = ("k2_side_sum", "ln_edge_stage", "ln_edge_adjoint")
 
 
 @pytest.mark.parametrize("name,dt", [
     (name, dt) for name in sorted(K.KERNELS)
     for dt in (torch.float32, torch.bfloat16)
-    if not (name == "k2_side_sum" and dt == torch.bfloat16)])
+    if not (name in FLOAT32_ONLY and dt == torch.bfloat16)])
 def test_every_wrapper_at_no_edges(name, dt):
     """E = 0: each wrapper returns empty edge rows and zero node sums and
     statistics, in the dtypes of its contract, and counts no launch (the
-    one-sided walk takes float32 only)."""
+    kernels of ``FLOAT32_ONLY`` take float32 only)."""
     call, want = _no_edge_call(name, dt)
     K.reset_launch_counts()
     got = call()

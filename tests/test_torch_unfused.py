@@ -8,7 +8,10 @@ plain versions of K1 and K2) against the JAX package's unfused path.
 * The backwards of the three autograd Functions against ``jax.vjp`` of
   ``fused_gate_gather``, ``gated_mean_pair`` and ``gather_uv_planned``
   (backend ``pallas``) under seeded cotangents, and
-  ``torch.autograd.gradcheck`` in float64.
+  ``torch.autograd.gradcheck`` in float64, as also the float32 layers'
+  ``unfused_edge_stage`` (K1, the layer-norm edge stage and K2 in one
+  Function), which is held besides to the autograd chain it replaced,
+  forward and every gradient, with LayerNorm and norm-free.
 * The model's eval logits against JAX ``forward`` (Pallas interpret and
   XLA), one symmetry-loss training step's loss and gradients against
   ``jax.value_and_grad`` of the JAX loss, ``cli train`` with a bitwise
@@ -21,10 +24,13 @@ rows with f32 one-hot matmuls); node sums ``rtol=atol=1e-5`` (sums of ~30
 terms in another order); backwards and training gradients ``atol=2e-4,
 rtol=5e-3`` (tests/test_pallas_k4.py:81); logits ``atol=2e-5, rtol=1e-4``
 (tests/test_model_parity.py:76); the step's loss ``atol=5e-5, rtol=1e-4``
-(tests/test_pallas_k4.py:55).
+(tests/test_pallas_k4.py:55); the edge-stage Function's gradients against
+the chain ``rtol=1e-4, atol=1e-5`` (the LayerNorm adjoint in closed form,
+float32 rounding; its forward is the chain's operations, bit for bit).
 """
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -51,10 +57,12 @@ from gnnome_tpu_torch.graphs import synthetic_assembly_graph
 from gnnome_tpu_torch.models import (SymGatedGCN, load_model_weights,
                                      module_state_from_numpy,
                                      numpy_from_module_state)
-from gnnome_tpu_torch.models.norm import layer_norm
+from gnnome_tpu_torch.models.norm import LN_EPS, apply_norm, layer_norm
 from gnnome_tpu_torch.ops import (DeviceGraph, aggregate, gate_gather,
-                                  gated_mean_pair, gather_uv)
+                                  gated_mean_pair, gather_uv,
+                                  unfused_edge_stage)
 from gnnome_tpu_torch.ops import kernels as K
+from gnnome_tpu_torch.ops import message as tmsg
 from gnnome_tpu_torch.train.step import (make_example, make_optimizer,
                                          train_step)
 
@@ -64,6 +72,7 @@ SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=5e-3, atol=2e-4)
 LOGIT_TOL = dict(rtol=1e-4, atol=2e-5)
 LOSS_TOL = dict(rtol=1e-4, atol=5e-5)
+STAGE_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 EPS = 1e-6
 
 
@@ -273,10 +282,12 @@ def tiny():
 
 
 @pytest.mark.parametrize("op", ["gate_gather", "gated_mean_pair",
-                                "gather_uv"])
+                                "gather_uv", "unfused_edge_stage",
+                                "unfused_edge_stage_none"])
 @pytest.mark.parametrize("flip", [False, True])
 def test_unfused_functions_gradcheck(tiny, flip, op):
-    """Float64 finite differences through K1's and K2's plain versions."""
+    """Float64 finite differences through K1's and K2's plain versions and
+    the layer-norm edge stage's (with LayerNorm, and norm-free)."""
     g, dg = tiny
     rng = np.random.default_rng(28)
     n, E, d = g.num_nodes, g.num_edges, 3
@@ -288,6 +299,15 @@ def test_unfused_functions_gradcheck(tiny, flip, op):
     if op == "gate_gather":
         fn, args = (lambda a, b, c: gate_gather(dg, flip, a, b, c),
                     (f(n, 2 * d), f(n, 2 * d), f(E, d)))
+    elif op == "unfused_edge_stage":
+        def fn(pu, pv, b3e, e, w, b):
+            return unfused_edge_stage(dg, flip, pu, pv, b3e, e, w, b, LN_EPS)
+        args = (f(n, 2 * d), f(n, 2 * d), f(E, d), f(E, d), f(d), f(d))
+    elif op == "unfused_edge_stage_none":
+        def fn(pu, pv, b3e, e):
+            return unfused_edge_stage(dg, flip, pu, pv, b3e, e, None, None,
+                                      LN_EPS)
+        args = (f(n, 2 * d), f(n, 2 * d), f(E, d), f(E, d))
     elif op == "gated_mean_pair":
         def fn(s, a, b):
             return gated_mean_pair(dg, flip, torch.sigmoid(s), a, b, EPS)
@@ -295,6 +315,93 @@ def test_unfused_functions_gradcheck(tiny, flip, op):
     else:
         fn, args = (lambda h: gather_uv(dg, flip, h), (f(n, d),))
     assert torch.autograd.gradcheck(fn, args, eps=1e-6, atol=1e-5)
+
+
+# ------------------------------------------ the float32 edge-stage Function
+def _edge_stage_chain(dg, flip, pu, pv, b3e, e, ln):
+    """The unfused layer's edge stage as the PyTorch chain the bf16 route
+    keeps: ``gate_gather``, ``apply_norm``, relu, residual, sigmoid,
+    ``gated_mean_pair``."""
+    d = e.shape[1]
+    g3 = gate_gather(dg, flip, pu, pv, b3e)
+    e_out = torch.relu(apply_norm(ln, g3[:, :d])) + e
+    return (e_out, *gated_mean_pair(dg, flip, torch.sigmoid(e_out),
+                                    g3[:, d:2 * d], g3[:, 2 * d:], EPS))
+
+
+def _edge_stage_function(dg, flip, pu, pv, b3e, e, ln):
+    """The same through ``unfused_edge_stage``, the gated means divided as
+    the layer divides them."""
+    d = e.shape[1]
+    e_out, sum_u, sum_v = unfused_edge_stage(
+        dg, flip, pu, pv, b3e, e, None if ln is None else ln.weight,
+        None if ln is None else ln.bias, LN_EPS)
+    return (e_out, sum_v[:, :d] / (sum_v[:, d:] + EPS),
+            sum_u[:, :d] / (sum_u[:, d:] + EPS))
+
+
+@pytest.mark.parametrize("norm", ["layer", "none"])
+@pytest.mark.parametrize("flip", [False, True])
+def test_unfused_edge_stage_vs_chain(graphs, flip, norm):
+    """The Function through the plain versions of K1, the layer-norm edge
+    stage, K2 and the stage's adjoint against the autograd chain it
+    replaces: e_out and the gated means bit for bit (the same operations),
+    every gradient (proj_u, proj_v, b3e, e, the LayerNorm weight and bias)
+    within ``STAGE_GRAD_TOL`` (the LayerNorm adjoint in its closed form,
+    float32 rounding), under seeded cotangents."""
+    g, _, dg = graphs
+    n, E = g.num_nodes, g.num_edges
+    rng = np.random.default_rng(29)
+    inputs = [_f32(rng, *s) for s in ((n, 2 * D), (n, 2 * D), (E, D),
+                                      (E, D))]
+    cots = [torch.from_numpy(_f32(rng, *s)) for s in ((E, D), (n, D),
+                                                      (n, D))]
+    ln = None
+    if norm == "layer":
+        ln = torch.nn.LayerNorm(D)
+        with torch.no_grad():
+            ln.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, D)))
+            ln.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, D)))
+    runs = []
+    for fn in (_edge_stage_chain, _edge_stage_function):
+        t = [torch.from_numpy(a).requires_grad_() for a in inputs]
+        if ln is not None:
+            ln.zero_grad()
+        out = fn(dg, flip, *t, ln)
+        torch.autograd.backward(out, cots)
+        grads = [x.grad for x in t]
+        if ln is not None:
+            grads += [ln.weight.grad.clone(), ln.bias.grad.clone()]
+        runs.append(([o.detach() for o in out], grads))
+    (out0, g0), (out1, g1) = runs
+    for a, b in zip(out0, out1):
+        assert torch.equal(a, b)
+    names = ["proj_u", "proj_v", "b3e", "e", "weight", "bias"]
+    for name, a, b in zip(names, g1, g0):
+        torch.testing.assert_close(a, b, **STAGE_GRAD_TOL, msg=name)
+
+
+def test_unfused_edge_stage_takes_float32_route_only(monkeypatch, graphs):
+    """A float32 layer-norm layer runs the Function (its K1 and K2 calls are
+    its own), a bf16 one the chain: the layer chooses by K1's operands."""
+    g, _, dg = graphs
+    layer = SymGatedGCN.from_config(ModelConfig(
+        **{**SMALL, "normalization": "layer"})).gnn.convs[0]
+    rng = np.random.default_rng(30)
+    h = torch.from_numpy(_f32(rng, g.num_nodes, D))
+    e = torch.from_numpy(_f32(rng, g.num_edges, D))
+    seen = []
+    real = tmsg.k2_aggregate
+
+    def k2(*a):
+        seen.append(sys._getframe(1).f_code.co_qualname)
+        return real(*a)
+
+    monkeypatch.setattr(tmsg, "k2_aggregate", k2)
+    with torch.inference_mode():
+        layer(dg, h, e, False)
+        layer(dg, h.bfloat16(), e.bfloat16(), False, dtype=torch.bfloat16)
+    assert seen == ["_UnfusedEdgeStage.forward", "_Aggregate.forward"]
 
 
 # ------------------------------------------------------------------ model
