@@ -1,8 +1,8 @@
 """Rank functions that run the halo path for a comparison with one device:
 each takes the rank's ``Group`` first, so ``parallel.group.spawn`` can start
 it, and returns numpy results (rank 0 the gathered ones) for the caller to
-hold against its single-device run.  The tests and ``chip_smoke.py`` use
-them; ``run_jobs`` runs several in one group.
+hold against its single-device run.  The tests use them; ``run_jobs``
+runs several in one group.
 """
 from __future__ import annotations
 

@@ -219,8 +219,9 @@ def cost(variant: str, n: int, E: int, d: int, es: int,
          store_sums: bool = False):
     """The least bytes and float32 operations of what a variant computes
     (inputs read once, outputs written once, ``es`` bytes a row element,
-    int32 indices): ``full`` and ``fixed_rows`` as K3 (chip_smoke.py
-    ``k3_cost``: both [N, 2d] projections, b3e, e_in, bn, e_out, both
+    int32 indices): ``full`` and ``fixed_rows`` as K3 (``k3_cost`` of
+    scripts/torch_kernel_times.py: both [N, 2d] projections, b3e, e_in,
+    bn, e_out, both
     [N, 2d] sums, both walks' row pointers and partners and the u side's
     permutation; ~20 operations per edge and feature); ``sums_unstored``
     without the sums' writes; ``edge_only`` the gate columns, b3e, e_in,

@@ -24,20 +24,27 @@ def _port_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
     yield from sorted(glob.glob(os.path.join(ROOT, "scripts", "torch_*.py")))
-    yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
+    # the card's entry point, suite and helper: the card's machine has no JAX
+    yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tests", "torch_recipes.py")
+    yield from sorted(glob.glob(os.path.join(ROOT, "tests",
+                                             "test_torch_cuda*.py")))
 
 
 def test_scan_covers_every_port_script():
     """Every ``scripts/torch_*.py`` is scanned, the recorded-run scripts
-    among them: the card's machine has no JAX."""
+    and the kernel-timing script among them, and ``chip_smoke.py`` and the
+    card suite with its helper: the card's machine has no JAX."""
     scanned = {os.path.basename(p) for p in _port_sources()}
     for name in ("torch_product_train_run.py", "torch_golden_ecoli_run.py",
                  "torch_train_quality_run.py", "torch_config4_route.py",
                  "torch_decode_profile.py",
                  "torch_native_sanitize_stress.py",
-                 "torch_eval_profile.py", "torch_multihost_smoke.py"):
+                 "torch_eval_profile.py", "torch_multihost_smoke.py",
+                 "torch_kernel_times.py", "chip_smoke.py", "torch_recipes.py",
+                 "test_torch_cuda.py", "test_torch_cuda_paths.py",
+                 "test_torch_cuda_parallel.py"):
         assert name in scanned, name
 
 

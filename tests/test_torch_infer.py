@@ -4,7 +4,6 @@ silent CPU fallback when the GPU is asked for and absent."""
 import filecmp
 import os
 import shutil
-import sys
 
 import numpy as np
 import pytest
@@ -84,14 +83,12 @@ def test_decode_matches_jax_package_on_same_scores(e2e_dataset, tmp_path):
                        shallow=False)
 
 
-def test_chip_smoke_dataset_decodes_exact_contig_on_cpu(tmp_path):
-    """The dataset ``chip_smoke.py`` decodes on the card, here on the CPU:
-    one long contig that is an exact substring of the genome."""
-    sys.path.insert(0, ROOT)
-    try:
-        from chip_smoke import INFER_GRAPH, make_infer_dataset
-    finally:
-        sys.path.remove(ROOT)
+def test_card_dataset_decodes_exact_contig_on_cpu(tmp_path):
+    """The dataset the card suite decodes (``torch_recipes.INFER_GRAPH``),
+    here on the CPU: one long contig that is an exact substring of the
+    genome."""
+    from torch_recipes import INFER_GRAPH, make_infer_dataset
+
     ds, genome = make_infer_dataset(str(tmp_path / "ds"))
     savedir = os.path.join(ds, "hifiasm")
     cli.main(["infer", "--data", ds, "--asm", "hifiasm", "--out", savedir,

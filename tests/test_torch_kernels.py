@@ -48,6 +48,8 @@ from gnnome_tpu.ops.pallas_kernels import set_interpret
 from gnnome_tpu_torch.ops import (DeviceGraph, eval_edge_stage, score_gate,
                                   train_edge_stage)
 from gnnome_tpu_torch.ops import kernels as K
+from torch_recipes import (NO_EDGE_CASES, NO_EDGE_D, NO_EDGE_N,
+                           check_no_edge_call)
 
 TILE, WIN, D = 128, 128, 16
 EDGE_TOL = dict(rtol=0, atol=1e-5)
@@ -528,84 +530,12 @@ def test_score_gate_gradcheck(tiny, flip):
 
 
 # ------------------------------------------------------------- no edges
-NO_EDGE_N, NO_EDGE_D = 5, 8
-
-
-def _no_edge_call(name, dt):
-    """``(wrapper call, expected outputs)`` of wrapper ``name`` on a graph
-    of ``NO_EDGE_N`` nodes and no edges: empty edge rows, zero node sums,
-    zero float64 statistics (what a halo rank whose block holds no edge
-    gets)."""
-    n, d = NO_EDGE_N, NO_EDGE_D
-    dg = DeviceGraph.build(np.zeros(0, np.int64), np.zeros(0, np.int64), n)
-    u, v, v_csr, u_csr = dg.roles(False)
-    gen = torch.Generator().manual_seed(0)
-    proj = torch.randn(n, 4 * d, generator=gen).to(dt)
-    pu, pv = proj[:, :2 * d], proj[:, 2 * d:]
-    edges = lambda w: torch.zeros(0, w, dtype=dt)  # noqa: E731
-    bn = torch.stack([torch.zeros(d), torch.ones(d), torch.ones(d),
-                      torch.zeros(d)]).to(dt)
-    f32, f64 = torch.float32, torch.float64
-    zeros = lambda *s, t=dt: torch.zeros(*s, dtype=t)  # noqa: E731
-    return {
-        "k1_gather_gate": (lambda: K.k1_gather_gate(u, v, pu, pv, edges(d)),
-                           [edges(3 * d)]),
-        "k2_aggregate": (lambda: K.k2_aggregate(u, v, v_csr, u_csr,
-                                                edges(2 * d), edges(2 * d)),
-                         [zeros(n, 2 * d, t=f32)] * 2),
-        "k2_side_sum": (lambda: K.k2_side_sum(u, u_csr, edges(d)),
-                        [zeros(n, d, t=f32)]),
-        "k3_edge_stage": (lambda: K.k3_edge_stage(u, v, v_csr, u_csr, pu, pv,
-                                                  edges(d), edges(d), bn),
-                          [edges(d), zeros(n, 2 * d), zeros(n, 2 * d)]),
-        "k6_score_gate": (lambda: K.k6_score_gate(u, v, pu, edges(d)),
-                          [edges(d)]),
-        "k7_gate_stats": (lambda: K.k7_gate_stats(u, v, pu[:, :d], pv[:, :d],
-                                                  edges(d)),
-                          [zeros(2 * d, t=f64)]),
-        "k8_train_layer_bwd": (
-            lambda: K.k8_train_layer_bwd(u, v, v_csr, u_csr, zeros(n, 2 * d),
-                                         zeros(n, 2 * d), pu, pv, edges(d),
-                                         edges(d), edges(d), bn),
-            [edges(d), edges(d), zeros(n, 3 * d), zeros(n, 3 * d),
-             zeros(2 * d, t=f64)]),
-        "k9_aggregate": (lambda: K.k9_aggregate(u, v, v_csr, u_csr, edges(d)),
-                         [zeros(n, 2 * d, t=f32)]),
-        "bn_edge_adjoint": (lambda: K.bn_edge_adjoint(
-            edges(d), edges(d), bn, zeros(3, d, t=f32)), [edges(d)]),
-        "ln_edge_stage": (lambda: K.ln_edge_stage(
-            edges(3 * d), edges(d), bn[2], bn[3], 1e-5),
-            [edges(d), edges(2 * d), edges(2 * d), edges(2)]),
-        "ln_edge_adjoint": (
-            lambda: K.ln_edge_adjoint(u, v, zeros(n, 2 * d), zeros(n, 2 * d),
-                                      edges(3 * d), edges(d), edges(d),
-                                      edges(2), bn[2], bn[3]),
-            [edges(2 * d), edges(2 * d), edges(d), zeros(2, d)]),
-    }[name]
-
-
-# float32 only: the one-sided walk (the zoo ignores the compute dtype) and
-# the layer-norm edge stage and its adjoint (bf16 keeps the PyTorch chain)
-FLOAT32_ONLY = ("k2_side_sum", "ln_edge_stage", "ln_edge_adjoint")
-
-
-@pytest.mark.parametrize("name,dt", [
-    (name, dt) for name in sorted(K.KERNELS)
-    for dt in (torch.float32, torch.bfloat16)
-    if not (name in FLOAT32_ONLY and dt == torch.bfloat16)])
+@pytest.mark.parametrize("name,dt", NO_EDGE_CASES)
 def test_every_wrapper_at_no_edges(name, dt):
     """E = 0: each wrapper returns empty edge rows and zero node sums and
     statistics, in the dtypes of its contract, and counts no launch (the
     kernels of ``FLOAT32_ONLY`` take float32 only)."""
-    call, want = _no_edge_call(name, dt)
-    K.reset_launch_counts()
-    got = call()
-    got = list(got) if isinstance(got, tuple) else [got]
-    assert len(got) == len(want)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        assert torch.equal(a, b)
-    assert K.launch_counts() == {k: 0 for k in K.KERNELS}
+    check_no_edge_call(name, dt)
 
 
 def test_train_edge_stage_at_no_edges():

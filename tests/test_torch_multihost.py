@@ -21,10 +21,6 @@ Each multi-process test bounds itself (``spawn``'s ``deadline_s``,
 once on another.
 """
 import os
-import re
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -37,64 +33,19 @@ from gnnome_tpu_torch.parallel import checks
 from gnnome_tpu_torch.parallel.group import (check_launch, join, launched,
                                              spawn)
 from gnnome_tpu_torch.train.loop import train
+from torch_recipes import LAUNCH_ENV, launch_two_hosts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMOKE = os.path.join(ROOT, "scripts", "torch_multihost_smoke.py")
 WEIGHTS = os.path.join(ROOT, "weights", "weights.npz")
-OK_LINE = re.compile(r"MULTIHOST_OK rank=(\d+) world=(\d+) local=(\d+) "
-                     r"transport=gloo loss=(\S+) launches=(\S+)")
-LAUNCH_ENV = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0",
-              "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
-              "MASTER_PORT": "1"}
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _launch(n_nodes: int, nproc: int = 2, timeout: float = 300) -> list:
-    """Two launchers on 127.0.0.1 with ``nproc`` ranks each; their output.
-    Retried once on another port when the first was taken."""
-    for attempt in range(2):
-        port = _free_port()
-        env = {k: v for k, v in os.environ.items()
-               if k not in LAUNCH_ENV and not k.startswith("TORCHELASTIC")}
-        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2",
-             "--node-rank", str(i), "--nproc-per-node", str(nproc),
-             "--master-addr", "127.0.0.1", "--master-port", str(port),
-             SMOKE, "--device", "cpu", "--n-nodes", str(n_nodes)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env, cwd=ROOT) for i in range(2)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=timeout)[0])
-        except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.communicate()
-            pytest.fail(f"launchers timed out after {timeout} s")
-        joined = "\n".join(outs)
-        if all(p.returncode == 0 for p in procs):
-            return outs
-        if attempt == 0 and re.search(r"address already in use|EADDRINUSE",
-                                      joined, re.I):
-            continue
-        pytest.fail("launchers failed:\n" + joined[-4000:])
 
 
 def _two_hosts_match_spawn(n_nodes: int) -> None:
-    outs = _launch(n_nodes)
-    found = {int(m[0]): m for m in OK_LINE.findall("\n".join(outs))}
-    assert sorted(found) == [0, 1, 2, 3], outs
-    assert all(m[1] == "4" for m in found.values())
+    found = launch_two_hosts(n_nodes, 2, "cpu")
+    assert sorted(found) == [0, 1, 2, 3], found
+    assert all(m[1] == "4" and m[3] == "gloo" for m in found.values())
     # global rank = host index x local ranks + local rank
     assert [int(found[r][2]) for r in range(4)] == [0, 1, 0, 1]
-    losses = {m[3] for m in found.values()}
+    losses = {m[4] for m in found.values()}
     assert len(losses) == 1
     unit, params, state, cfg = checks.multihost_inputs(n_nodes, 4, "cpu")
     res = spawn(checks.train_step_job, 4, unit, params, state, cfg, 1.0,

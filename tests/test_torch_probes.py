@@ -282,8 +282,8 @@ def test_specs_and_costs():
         ("edge_only", 16, 3), ("full", 8, 3), ("full", 16, 4)]
     with pytest.raises(ValueError, match="not built"):
         P.parse_specs("walk_only:8:3", 64)
-    # full's bytes are chip_smoke.py's k3_cost: both projections and sums,
-    # three edge streams, bn, the walks' int32 arrays
+    # full's bytes are scripts/torch_kernel_times.py's k3_cost: both
+    # projections and sums, three edge streams, bn, the walks' int32 arrays
     n, E, d = 100, 600, 64
     want = 4 * (2 * n * 2 * d + 3 * E * d + 4 * d + 2 * n * 2 * d) \
         + 4 * (3 * E + 2 * (n + 1))

@@ -24,9 +24,9 @@ from gnnome_tpu_torch.parallel import checks
 from gnnome_tpu_torch.parallel.group import spawn
 from gnnome_tpu_torch.parallel.halo import plan_graph
 from gnnome_tpu_torch.parallel.projection import (LINKS, Traffic,
-                                                  forward_traffic, project,
-                                                  step_traffic)
+                                                  forward_traffic, project)
 from gnnome_tpu_torch.train.step import host_units
+from torch_recipes import check_wire_counts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "torch_scaling_projection.py")
@@ -97,15 +97,8 @@ def test_counts_equal_the_groups(ranks, inputs):
     for (name, kind, dtype, sym), res in by_key.items():
         g, _ = graphs[name]
         plan, _ = plan_graph(g.src, g.dst, g.num_nodes, P)
-        assert [r["K"] for r in res] == [plan.K] * P
-        assert [r["R"] for r in res] == [plan.R] * P
-        for r in res:
-            want = (forward_traffic(plan, r["rank"], d, L) if kind == "forward"
-                    else step_traffic(plan, r["rank"], d, L, n_params,
-                                      passes=2 if sym else 1))
-            assert r["bytes"] == want.sent, (name, kind, dtype, sym, r["rank"])
-            assert r["calls"] == want.calls, (name, kind, dtype, sym,
-                                              r["rank"])
+        check_wire_counts(res, plan, kind, d, L, n_params,
+                          passes=2 if sym else 1)
         seen.add((name, plan.K > 0, plan.R > 0))
     # strips and overflow rows both counted; at P = 4 a plan with K = 0
     assert ("overflow", True, True) in seen

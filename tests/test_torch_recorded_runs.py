@@ -94,16 +94,12 @@ def test_product_cpu_run_resumes_bitwise(tmp_path):
 # ------------------------------------------------------------- golden run
 @pytest.fixture(scope="module")
 def golden_sub(tmp_path_factory):
-    """The golden-subgraph recipe of ``chip_smoke.golden_subgraph`` with
+    """The golden-subgraph recipe (``torch_recipes.golden_keep``) with
     every read's two strands kept (the greedy decoder walks both)."""
+    from torch_recipes import golden_keep
+
     g = AssemblyGraph.load(FIXTURE)
-    hard = np.nonzero((g.y == 0) & (g.overlap_similarity > 0.95))[0]
-    keep = np.zeros(g.num_nodes, dtype=bool)
-    keep[:1600] = True
-    for eid in hard[:: max(1, len(hard) // 4)][:4]:
-        for v in (int(g.src[eid]), int(g.dst[eid])):
-            keep[max(0, v - 400): v + 400] = True
-    keep = np.repeat(keep.reshape(-1, 2).any(1), 2)
+    keep = np.repeat(golden_keep(g).reshape(-1, 2).any(1), 2)
     sub = g.node_subgraph(keep)[0]
     path = str(tmp_path_factory.mktemp("golden") / "sub.npz")
     sub.save(path)

@@ -429,32 +429,10 @@ def test_example_is_in_slot_order():
 
 
 def test_overfit_run_learns_on_cpu(tmp_path):
-    """The overfit recipe ``chip_smoke.py`` runs on the card (that of
-    tests/test_train.py:131-170: 12 epochs, lr 1e-3, full width, dropout
-    0.2), here on the CPU: the loss drops by 10% and the saved model ranks
-    the true edges (AP > 0.75)."""
-    import sys
-    sys.path.insert(0, ROOT)
-    try:
-        from chip_smoke import (OVERFIT_GRAPH, OVERFIT_LOSS_DROP,
-                                OVERFIT_MIN_AP, write_dataset)
-    finally:
-        sys.path.remove(ROOT)
-    g, reads, _, _ = synthetic_assembly_graph(**OVERFIT_GRAPH)
-    ds = write_dataset(str(tmp_path / "ds"), g, reads)
-    best = cli.main(["train", "--train", ds, "--valid", ds, "--asm",
-                     "hifiasm", "--name", "o", "--overfit",
-                     "--set", "compute.device=cpu",
-                     "--set", f"paths.checkpoints_path={tmp_path}",
-                     "--set", f"paths.models_path={tmp_path}",
-                     "--set", "train.num_epochs=12", "--set", "train.lr=1e-3",
-                     "--set", "train.masking=false",
-                     "--set", "train.num_nodes_per_cluster=10000"])
-    with open(tmp_path / "log_o_seed1.jsonl") as f:
-        losses = [json.loads(line)["train/loss"] for line in f]
-    assert len(losses) == 12
-    assert losses[-1] < OVERFIT_LOSS_DROP * losses[0]
-    cfg = Config()
-    cfg.compute.device = "cpu"
-    logits = score_graph(g, *load_model_weights(best), cfg)
-    assert metrics.get_aps(logits, g.y) > OVERFIT_MIN_AP
+    """The overfit recipe the card suite runs (``torch_recipes.overfit_run``;
+    that of tests/test_train.py:131-170: 12 epochs, lr 1e-3, full width,
+    dropout 0.2), here on the CPU: the loss drops by 10% and the saved
+    model ranks the true edges (AP > 0.75)."""
+    from torch_recipes import overfit_run
+
+    overfit_run(str(tmp_path), device="cpu")
