@@ -22,18 +22,26 @@ Conv semantics follow DGL 0.8, as in the JAX package:
 * SAGE: mean aggregator, ``fc_self(h) + fc_neigh(mean_in(h))``
   (processor.py:73-83).
 
-Every reduction into nodes is ``ops.message.sum_into`` (the one-sided K2
-walk) and every endpoint gather ``gather_rows`` (its backward is that
-walk), so training stays bitwise reproducible on the card.  Each module's
+Every reduction into nodes is the one-sided K2 walk (``ops.message.sum_into``,
+or ``k2_side_sum`` inside ``gat_conv``) and every endpoint gather
+``gather_rows`` (its backward is that walk), so training stays bitwise
+reproducible on the card.  Each module's
 ``forward(g, x, e, g_proc=None, generator=None, slot_io=False)`` takes the
 original graph ``g``, its processor graph ``g_proc`` (None: ``g`` itself)
 and returns logits [E, 1] as ``SymGatedGCN.forward`` does.
 
+A GATConv after its ``fc`` is one autograd Function,
+``gat_conv``: hand-written kernels (csrc/gat_edge.cu) around
+its six one-sided walks a layer, nothing ``[E', H*d]`` saved for the
+backward.
+
 Spans (``utils.timing``): each model's forward is ``model.forward``; in
-each GATConv, the attention (``el``/``er``, edge logits, the segment max,
-``exp``, denominators, ``alpha``) is ``gat.attention`` and the messages
-(the gather, the weighting, the sum into nodes, the bias) are
-``gat.aggregate``, ``fc`` and ``proj`` outside both.
+each GATConv (inside ``gat_conv``), the attention (``el``/``er``, edge
+logits, the segment max, ``exp``, denominators) is ``gat.attention`` and
+the messages (``alpha``, the gather and weighting of ``feat[src]``, the
+sum into nodes, the bias) are ``gat.aggregate``, ``fc`` and ``proj``
+outside both.  ``alpha`` is formed in the message kernel, so it lies in
+``gat.aggregate``.
 """
 from __future__ import annotations
 
@@ -45,6 +53,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.graph_tensors import DeviceGraph
+from ..ops.kernels import (gat_edge_softmax, gat_logit_adjoint,
+                           gat_message_adjoint, gat_messages,
+                           gat_node_adjoint, gat_node_logits, k2_side_sum)
 from ..ops.message import gather_rows, sum_into
 from ..utils.timing import span
 from .nn import dropout, mlp2
@@ -269,6 +280,70 @@ class GCN(_ZooModel):
 
 
 # ========================================================================= GAT
+class _GATLayer(torch.autograd.Function):
+    """See ``gat_conv``.  Saved: ``feat`` [N, H d], the attention vectors,
+    ``el``, ``er``, the denominators ([N, H]), ``expv`` and ``alpha`` ([E,
+    H]); nothing [E, H d]."""
+
+    @staticmethod
+    def forward(ctx, g, feat, attn_l, attn_r, bias):
+        _, _, by_dst, _ = g.roles(False)
+        with span("gat.attention"):
+            el, er = gat_node_logits(feat, attn_l, attn_r)
+            expv = gat_edge_softmax(g.src, g.dst, g.dst_ptr, el, er)
+            denom = k2_side_sum(g.dst, by_dst, expv)
+        with span("gat.aggregate"):
+            msg, alpha = gat_messages(g.src, g.dst, feat, expv, denom)
+            out = k2_side_sum(g.dst, by_dst, msg) + bias
+        ctx.g = g
+        ctx.save_for_backward(feat, attn_l, attn_r, el, er, denom, expv,
+                              alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        feat, attn_l, attn_r, el, er, denom, expv, alpha = ctx.saved_tensors
+        g = ctx.g
+        _, _, by_dst, by_src = g.roles(False)
+        d_out = d_out.contiguous()
+        d_rows, d_expv, pay = gat_message_adjoint(g.src, g.dst, d_out, feat,
+                                                  alpha, denom)
+        d_feat = k2_side_sum(g.src, by_src, d_rows)
+        del d_rows                      # the one [E, H d] transient
+        d_denom = k2_side_sum(g.dst, by_dst, pay)
+        d_x = gat_logit_adjoint(g.src, g.dst, el, er, expv, d_expv, d_denom)
+        d_feat, d_attn = gat_node_adjoint(
+            feat, attn_l, attn_r, k2_side_sum(g.src, by_src, d_x),
+            k2_side_sum(g.dst, by_dst, d_x), d_feat)
+        return None, d_feat, d_attn[0], d_attn[1], d_out.sum(0)
+
+
+def gat_conv(g: DeviceGraph, feat, attn_l, attn_r, bias):
+    """One GATConv after its ``fc`` (JAX ``_gat_layer``, zoo.py:258-280):
+    ``out [N, H d]``, ``out[v]`` = the sum over v's in-slots of ``alpha *
+    feat[src]`` head by head, plus ``bias``, with ``feat`` [N, H d] (heads
+    side by side), ``el[n, h] = <feat[n, h], attn_l[h]>`` and ``er`` alike
+    (``attn_*`` [H, d]), ``x = leaky_relu(el[src] + er[dst], 0.2)``, ``expv
+    = exp(x - max_v x)`` over each dst's in-slots (the max detached: the
+    softmax does not change under a shift, so its gradient, which cancels
+    exactly, is left out; a node with no in-slot keeps 0), ``denom`` the
+    sums of ``expv`` into dst, ``alpha = expv / max(denom[dst], 1e-9)``.
+
+    Forward, under the span ``gat.attention``: ``gat_node_logits``,
+    ``gat_edge_softmax`` and the one-sided K2 walk of ``expv`` (width H);
+    under ``gat.aggregate``: ``gat_messages`` (alpha and the weighted rows
+    ``feat[src]``), the walk of the messages (width H d) and the bias.
+    Backward: ``gat_message_adjoint``, the walks of its weighted cotangent
+    rows into src (``feat``'s gradient through the messages) and of the
+    denominators' payload into dst, ``gat_logit_adjoint``, the walks of its
+    result into src (``el``'s gradient) and dst (``er``'s), then
+    ``gat_node_adjoint`` (``feat``'s whole gradient and the attention
+    vectors'); the bias's is the cotangent's column sum.  Six walks a
+    layer; the ``[E, H d]`` rows live only from a kernel to its walk.
+    float32 (and float64 on the CPU)."""
+    return _GATLayer.apply(g, feat, attn_l, attn_r, bias)
+
+
 class _GATConv(nn.Module):
     """One GATConv (DGL semantics): ``fc`` without bias ([H*d, d]),
     attention vectors ``attn_l``/``attn_r`` [H, d], output bias [H*d]."""
@@ -293,33 +368,9 @@ class _GATConv(nn.Module):
 
     def forward(self, g: DeviceGraph, h, drop_rate: float, generator):
         """JAX ``_gat_layer`` (zoo.py:255-282): ``[N, H*d]``."""
-        n, d = h.shape
-        heads = self.heads
         if drop_rate > 0.0:
             h = dropout(h, drop_rate, generator)
-        feat = self.fc(h)                                    # [N, H*d]
-        with span("gat.attention"):
-            f3 = feat.view(n, heads, d)
-            el = (f3 * self.attn_l).sum(-1)                  # [N, H]
-            er = (f3 * self.attn_r).sum(-1)
-            logit = F.leaky_relu(gather_rows(g, "src", el)
-                                 + gather_rows(g, "dst", er), 0.2)
-            # The per-destination max only shifts the softmax, which does
-            # not change under a shift: detached, its gradient (which
-            # cancels exactly in the softmax) is left out.  A max is exact
-            # in any order, so scatter_reduce's order on the card changes
-            # no bit.  Nodes without in-edges keep 0 (zoo.py:266).
-            with torch.no_grad():
-                idx = g.dst.long()[:, None].expand(-1, heads)
-                seg_max = logit.new_zeros(n, heads).scatter_reduce(
-                    0, idx, logit, "amax", include_self=False)
-            expv = torch.exp(logit - seg_max.index_select(0, g.dst))
-            denom = sum_into(g, "dst", expv)                 # [N, H]
-            alpha = expv / gather_rows(g, "dst", denom).clamp_min(1e-9)
-        with span("gat.aggregate"):
-            msg = (gather_rows(g, "src", feat).view(-1, heads, d)
-                   * alpha[:, :, None])
-            return sum_into(g, "dst", msg.reshape(-1, heads * d)) + self.bias
+        return gat_conv(g, self.fc(h), self.attn_l, self.attn_r, self.bias)
 
 
 class GAT(_ZooModel):

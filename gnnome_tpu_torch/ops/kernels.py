@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels K1, K2, K3, K6, K7, K8, K9, the batch-norm
-edge adjoint and the layer-norm edge stage and its adjoint, their plain
-PyTorch versions, and the build that turns ``csrc/*.cu`` into one shared
-library.
+edge adjoint, the layer-norm edge stage and its adjoint and the GAT
+layer's six kernels, their plain PyTorch versions, and the build that
+turns ``csrc/*.cu`` into one shared library.
 
 K3 (edge stage) and K6 (score gate) carry the batch-norm model's forward;
 K7 (gate batch statistics), K8 (edge-stage adjoint), the batch-norm edge
@@ -14,7 +14,13 @@ layer-norm edge stage (``ln_edge_stage``: LayerNorm, relu, residual,
 sigmoid and K2's payloads in one pass) and its adjoint
 (``ln_edge_adjoint``), the norm-free model's too with the normalisation
 left out.  ``k2_side_sum``, one side of K2's walk as its own entry,
-carries the model zoo's reductions into nodes.
+carries the model zoo's reductions into nodes.  Around the GAT layer's
+six such walks (``models/zoo.py`` ``gat_conv``, csrc/gat_edge.cu):
+``gat_node_logits`` (the attention's node halves el, er),
+``gat_edge_softmax`` (the softmax's numerators, a dst walk),
+``gat_messages`` (alpha and the weighted rows ``feat[src]``), and in the
+backward ``gat_message_adjoint``, ``gat_logit_adjoint`` and
+``gat_node_adjoint`` (feat's and the attention vectors' gradients).
 
 K1, K2, K3, K6, K7, K8, K9 and the edge adjoint run in float32 or
 bfloat16 (the JAX package's ``compute.dtype=bfloat16``): each kernel has a
@@ -22,15 +28,15 @@ bf16 instantiation, chosen by the ``bf16`` flag its C entry takes from the
 tensors' dtype, that reads and writes bf16 rows, computes in float32 and
 rounds where the JAX bf16 kernel rounds; its plain version does the same
 operations on bf16 tensors.  K2 and K9 sum bf16 payloads into float32
-node sums.  The one-sided K2 walk (the zoo) and the layer-norm edge stage
-and its adjoint take float32 only (bf16 operands keep the PyTorch chain,
-``models/sym_gated_gcn.py``).
+node sums.  The one-sided K2 walk (the zoo), the GAT kernels and the
+layer-norm edge stage and its adjoint take float32 only (bf16 operands keep
+the PyTorch chain, ``models/sym_gated_gcn.py``; the zoo runs in float32).
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  With no edges (E =
-0, a halo rank whose block holds no edge) a wrapper launches nothing and
-returns what the plain version returns: empty edge rows, zero node sums,
-zero float64 statistics.  Each wrapper counts
+0, a halo rank whose block holds no edge; for the GAT's node kernels no
+node) a wrapper launches nothing and returns what the plain version
+returns: empty edge rows, zero node sums, zero float64 statistics.  Each wrapper counts
 its launches in ``<wrapper>.launches``, and those of its bf16 instantiation
 also in ``<wrapper>.launches_bf16`` (see ``launch_counts``), so a run can
 show that its main path went through the kernels, and in which dtype.
@@ -66,7 +72,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
 SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
            "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
-           "k9_aggregate.cu", "bn_edge_adjoint.cu", "ln_edge_stage.cu")
+           "k9_aggregate.cu", "bn_edge_adjoint.cu", "ln_edge_stage.cu",
+           "gat_edge.cu")
 HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh",
            "k3_edge_stage.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -215,6 +222,33 @@ def _library():
                 L, I, P, P, P, P,            # n_rows, d, u_idx, v_idx, d_sum_u, d_sum_v
                 P, P, P, P, P, P,            # g3, e_out, d_e_out, stats, weight, bias
                 P, P, P, P, P, P]            # pay_u, pay_v, d_e, partials, d_wb, stream
+            lib.gn_gat_edge_softmax.restype = I
+            lib.gn_gat_edge_softmax.argtypes = [
+                I, I, P, P,                  # n_nodes, heads, ptr, src
+                P, P, P, P]                  # el, er, expv, stream
+            lib.gn_gat_messages.restype = I
+            lib.gn_gat_messages.argtypes = [
+                L, I, I, P, P,               # n_slots, heads, d, src, dst
+                P, P, P, P, P, P]            # feat, expv, denom, msg, alpha, stream
+            lib.gn_gat_message_adjoint.restype = I
+            lib.gn_gat_message_adjoint.argtypes = [
+                L, I, I, P, P,               # n_slots, heads, d, src, dst
+                P, P, P, P,                  # d_out, feat, alpha, denom
+                P, P, P, P]                  # d_feat, d_expv, pay, stream
+            lib.gn_gat_logit_adjoint.restype = I
+            lib.gn_gat_logit_adjoint.argtypes = [
+                L, I, P, P, P, P,            # n_slots, heads, src, dst, el, er
+                P, P, P, P, P]               # expv, d_expv, d_denom, d_x, stream
+            lib.gn_gat_node_logits.restype = I
+            lib.gn_gat_node_logits.argtypes = [
+                L, I, I, P, P, P,            # n_nodes, heads, d, feat, attn_l, attn_r
+                P, P, P]                     # el, er, stream
+            lib.gn_gat_node_adjoint_blocks.restype = I
+            lib.gn_gat_node_adjoint_blocks.argtypes = [I]
+            lib.gn_gat_node_adjoint.restype = I
+            lib.gn_gat_node_adjoint.argtypes = [
+                I, I, I, P, P, P,            # n_nodes, heads, d, feat, attn_l, attn_r
+                P, P, P, P, P, P, P]         # d_el, d_er, acc, d_feat, partials, d_attn, stream
             lib.gn_cuda_error_string.restype = ctypes.c_char_p
             lib.gn_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -982,13 +1016,325 @@ def ln_edge_adjoint(u_idx, v_idx, d_sum_u, d_sum_v, g3, e_out, d_e_out,
     return pay_u, pay_v, d_e, d_wb
 
 
+# ------------------------------------------------------------ GAT edge work
+GAT_SLOPE = 0.2         # LeakyReLU's negative slope
+GAT_DENOM_MIN = 1e-9    # the softmax denominators' clamp
+
+
+def gat_node_logits_plain(feat, attn_l, attn_r):
+    """Plain PyTorch attention halves of the nodes: ``(el, er)`` ([N, H]),
+    ``el[n, h] = <feat[n, h], attn_l[h]>`` (``feat`` [N, H d], heads side by
+    side; ``attn_l``, ``attn_r`` [H, d]), the products summed by
+    ``torch.sum``."""
+    heads, d = attn_l.shape
+    f3 = feat.view(-1, heads, d)
+    return (f3 * attn_l).sum(-1), (f3 * attn_r).sum(-1)
+
+
+def gat_node_logits(feat, attn_l, attn_r):
+    """The attention's node halves (csrc/gat_edge.cu
+    ``gat_node_logits_kernel``): one pass over ``feat`` in place of the
+    plain version's two products and two sums over ``[N, H d]``.  float32,
+    every tensor contiguous.  Returns what ``gat_node_logits_plain``
+    returns; its dot products add in another order than ``torch.sum``, so
+    they differ from it by rounding."""
+    if feat.device.type == "cpu":
+        return gat_node_logits_plain(feat, attn_l, attn_r)
+    if feat.device.type != "cuda":
+        raise ValueError(f"GAT node logits: unsupported device {feat.device}")
+    dev = feat.device
+    heads, d = attn_l.shape
+    n = feat.shape[0]
+    _gat_check("GAT node logits", dev, heads,
+               [("feat", feat, (n, heads * d)), ("attn_l", attn_l, (heads, d)),
+                ("attn_r", attn_r, (heads, d))], [])
+    el = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    er = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    if n == 0:
+        return el, er
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_gat_node_logits(
+            n, heads, d, _ptr(feat), _ptr(attn_l), _ptr(attn_r), _ptr(el),
+            _ptr(er), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "GAT node logits")
+    _count(gat_node_logits, torch.float32)
+    return el, er
+
+
+def gat_node_adjoint_plain(feat, attn_l, attn_r, d_el, d_er, acc):
+    """Plain PyTorch adjoint of ``gat_node_logits``: ``(d_feat [N, H d],
+    d_attn [2, H, d])``, ``d_feat = acc + (d_el (x) attn_l + d_er (x)
+    attn_r)`` (``acc``: feat's gradient from elsewhere, the messages')
+    and ``d_attn`` = [sum over n of d_el[n, h] * feat[n, h] | the same of
+    d_er], the gradients of ``attn_l`` and ``attn_r``."""
+    heads, d = attn_l.shape
+    f3 = feat.view(-1, heads, d)
+    gl, gr = d_el[:, :, None], d_er[:, :, None]
+    d_feat = acc + (gl * attn_l + gr * attn_r).reshape(acc.shape)
+    return d_feat, torch.stack([(gl * f3).sum(0), (gr * f3).sum(0)])
+
+
+def gat_node_adjoint(feat, attn_l, attn_r, d_el, d_er, acc):
+    """The attention's node adjoint (csrc/gat_edge.cu
+    ``gat_node_adjoint_kernel``, then ``reduce_partials``): one pass over
+    ``feat`` and ``acc`` that writes ``d_feat`` and sums the attention
+    vectors' gradients in float64 blocks added in a fixed order.  float32,
+    every tensor contiguous.  Returns what ``gat_node_adjoint_plain``
+    returns: ``d_feat`` bit for bit, ``d_attn`` rounded once from its
+    float64 sums (the plain version sums in float32), and repeating bit for
+    bit."""
+    if feat.device.type == "cpu":
+        return gat_node_adjoint_plain(feat, attn_l, attn_r, d_el, d_er, acc)
+    if feat.device.type != "cuda":
+        raise ValueError(f"GAT node adjoint: unsupported device {feat.device}")
+    dev = feat.device
+    heads, d = attn_l.shape
+    n = feat.shape[0]
+    _gat_check("GAT node adjoint", dev, heads,
+               [("feat", feat, (n, heads * d)), ("attn_l", attn_l, (heads, d)),
+                ("attn_r", attn_r, (heads, d)), ("d_el", d_el, (n, heads)),
+                ("d_er", d_er, (n, heads)), ("acc", acc, (n, heads * d))], [])
+    d_feat = torch.empty_like(acc)
+    if n == 0:
+        return d_feat, torch.zeros((2, heads, d), dtype=torch.float32,
+                                   device=dev)
+    lib = _library()
+    partials = torch.empty((lib.gn_gat_node_adjoint_blocks(n),
+                            2 * heads * d), dtype=torch.float64, device=dev)
+    d_attn = torch.empty(2 * heads * d, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gn_gat_node_adjoint(
+            n, heads, d, _ptr(feat), _ptr(attn_l), _ptr(attn_r), _ptr(d_el),
+            _ptr(d_er), _ptr(acc), _ptr(d_feat), _ptr(partials),
+            _ptr(d_attn), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "GAT node adjoint")
+    _count(gat_node_adjoint, torch.float32)
+    return d_feat, d_attn.view(2, heads, d).float()
+
+
+def gat_edge_softmax_plain(src, dst, el, er):
+    """Plain PyTorch edge softmax numerators: ``expv [E, H] = exp(x -
+    max_v x)`` with ``x = leaky_relu(el[src] + er[dst], 0.2)`` and the max
+    over each dst's in-slots (``el``, ``er`` [N, H]; ``src``, ``dst`` [E]
+    in slot order).  The max is detached and exact in any order; a node
+    with no in-slot keeps 0 (JAX zoo.py:266)."""
+    n, heads = er.shape
+    x = torch.nn.functional.leaky_relu(el.index_select(0, src)
+                                       + er.index_select(0, dst), GAT_SLOPE)
+    with torch.no_grad():
+        idx = dst.long()[:, None].expand(-1, heads)
+        seg_max = x.new_zeros(n, heads).scatter_reduce(
+            0, idx, x, "amax", include_self=False)
+    return torch.exp(x - seg_max.index_select(0, dst))
+
+
+def _gat_check(name, dev, heads, tensors, idx):
+    """Float32 contiguous ``(name, tensor, shape)`` triples on ``dev`` and
+    int32 [E] index arrays."""
+    for what, t, shape in tensors:
+        _check(what, t, torch.float32, shape, dev)
+    for what, t, E in idx:
+        _check(what, t, torch.int32, (E,), dev)
+    if heads <= 0:
+        raise ValueError(f"{name}: no heads")
+
+
+def gat_edge_softmax(src, dst, dst_ptr, el, er):
+    """The GAT edge softmax's numerators (csrc/gat_edge.cu
+    ``gat_edge_softmax_kernel``): one walk of each dst's in-slots (``dst_ptr``
+    [N+1], ``DeviceGraph.dst_ptr``) in place of the plain version's gathers,
+    scatter max and elementwise passes.  float32, every tensor contiguous.
+    Returns what ``gat_edge_softmax_plain`` returns (exp may differ by an
+    ulp)."""
+    if el.device.type == "cpu":
+        return gat_edge_softmax_plain(src, dst, el, er)
+    if el.device.type != "cuda":
+        raise ValueError(f"GAT edge softmax: unsupported device {el.device}")
+    dev = el.device
+    E, (m, heads) = src.shape[0], er.shape
+    n = dst_ptr.shape[0] - 1
+    _gat_check("GAT edge softmax", dev, heads,
+               [("el", el, (el.shape[0], heads)), ("er", er, (m, heads))],
+               [("src", src, E), ("dst", dst, E), ("dst_ptr", dst_ptr, n + 1)])
+    expv = torch.empty((E, heads), dtype=torch.float32, device=dev)
+    if E == 0:
+        return expv
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_gat_edge_softmax(
+            n, heads, _ptr(dst_ptr), _ptr(src), _ptr(el), _ptr(er),
+            _ptr(expv), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "GAT edge softmax")
+    _count(gat_edge_softmax, torch.float32)
+    return expv
+
+
+def gat_messages_plain(src, dst, feat, expv, denom):
+    """Plain PyTorch GAT messages: ``(msg [E, H d], alpha [E, H])`` with
+    ``alpha = expv / max(denom[dst], 1e-9)`` and ``msg`` = ``feat[src]``
+    ([N, H d], heads side by side) weighted head by head by ``alpha``."""
+    heads = expv.shape[1]
+    alpha = expv / denom.index_select(0, dst).clamp_min(GAT_DENOM_MIN)
+    rows = feat.index_select(0, src)
+    msg = rows.view(-1, heads, rows.shape[1] // heads) * alpha[:, :, None]
+    return msg.reshape(rows.shape), alpha
+
+
+def gat_messages(src, dst, feat, expv, denom):
+    """The GAT messages (csrc/gat_edge.cu ``gat_messages_kernel``): one pass
+    that gathers ``feat[src]`` and writes ``msg`` and ``alpha`` in place of
+    the plain version's gathers, clamp, division and weighting.  float32,
+    every tensor contiguous.  Returns what ``gat_messages_plain`` returns,
+    bit for bit."""
+    if feat.device.type == "cpu":
+        return gat_messages_plain(src, dst, feat, expv, denom)
+    if feat.device.type != "cuda":
+        raise ValueError(f"GAT messages: unsupported device {feat.device}")
+    dev = feat.device
+    E, heads = expv.shape
+    w = feat.shape[1]
+    if w % heads:
+        raise ValueError(f"GAT messages: width {w} not a multiple of "
+                         f"{heads} heads")
+    _gat_check("GAT messages", dev, heads,
+               [("feat", feat, (feat.shape[0], w)), ("expv", expv, (E, heads)),
+                ("denom", denom, (denom.shape[0], heads))],
+               [("src", src, E), ("dst", dst, E)])
+    msg = torch.empty((E, w), dtype=torch.float32, device=dev)
+    alpha = torch.empty((E, heads), dtype=torch.float32, device=dev)
+    if E == 0:
+        return msg, alpha
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_gat_messages(
+            E, heads, w // heads, _ptr(src), _ptr(dst), _ptr(feat),
+            _ptr(expv), _ptr(denom), _ptr(msg), _ptr(alpha),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "GAT messages")
+    _count(gat_messages, torch.float32)
+    return msg, alpha
+
+
+def gat_message_adjoint_plain(src, dst, d_out, feat, alpha, denom):
+    """Plain PyTorch adjoint of the GAT messages and of their sum into dst:
+    ``(d_feat [E, H d], d_expv [E, H], pay [E, H])`` from the cotangent
+    ``d_out`` [N, H d] of the sums, gathered here at ``dst``: ``d_feat =
+    alpha * d_out[dst]`` head by head (summed into src it is feat's
+    gradient), ``d_alpha = <d_out[dst], feat[src]>`` a head, ``d_expv =
+    d_alpha / Dc`` and ``pay = -d_alpha * (alpha / Dc)`` where ``denom[dst]
+    >= 1e-9``, else 0 (``Dc = max(denom[dst], 1e-9)``; summed into dst it
+    is the denominators' gradient): autograd's adjoints of the division and
+    the clamp, in their operations."""
+    heads = alpha.shape[1]
+    g = d_out.index_select(0, dst)
+    g3 = g.view(-1, heads, g.shape[1] // heads)
+    d_feat = (g3 * alpha[:, :, None]).reshape(g.shape)
+    rows = feat.index_select(0, src)
+    d_alpha = (g3 * rows.view(g3.shape)).sum(-1)
+    den = denom.index_select(0, dst)
+    dc = den.clamp_min(GAT_DENOM_MIN)
+    pay = torch.where(den >= GAT_DENOM_MIN, -d_alpha * (alpha / dc),
+                      torch.zeros_like(d_alpha))
+    return d_feat, d_alpha / dc, pay
+
+
+def gat_message_adjoint(src, dst, d_out, feat, alpha, denom):
+    """The GAT messages' adjoint (csrc/gat_edge.cu
+    ``gat_message_adjoint_kernel``): one pass over the slots that gathers
+    ``d_out[dst]`` and ``feat[src]`` itself.  float32, every tensor
+    contiguous.  Returns what ``gat_message_adjoint_plain`` returns;
+    ``d_alpha``'s dot products add in another order than ``torch.sum``, so
+    ``d_expv`` and ``pay`` differ from it by rounding; ``d_feat`` is bit
+    for bit."""
+    if feat.device.type == "cpu":
+        return gat_message_adjoint_plain(src, dst, d_out, feat, alpha, denom)
+    if feat.device.type != "cuda":
+        raise ValueError(f"GAT message adjoint: unsupported device "
+                         f"{feat.device}")
+    dev = feat.device
+    E, heads = alpha.shape
+    w = feat.shape[1]
+    if w % heads:
+        raise ValueError(f"GAT message adjoint: width {w} not a multiple of "
+                         f"{heads} heads")
+    n = denom.shape[0]
+    _gat_check("GAT message adjoint", dev, heads,
+               [("d_out", d_out, (n, w)), ("feat", feat, (feat.shape[0], w)),
+                ("alpha", alpha, (E, heads)), ("denom", denom, (n, heads))],
+               [("src", src, E), ("dst", dst, E)])
+    d_feat = torch.empty((E, w), dtype=torch.float32, device=dev)
+    d_expv = torch.empty((E, heads), dtype=torch.float32, device=dev)
+    pay = torch.empty((E, heads), dtype=torch.float32, device=dev)
+    if E == 0:
+        return d_feat, d_expv, pay
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_gat_message_adjoint(
+            E, heads, w // heads, _ptr(src), _ptr(dst), _ptr(d_out),
+            _ptr(feat), _ptr(alpha), _ptr(denom), _ptr(d_feat), _ptr(d_expv),
+            _ptr(pay), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "GAT message adjoint")
+    _count(gat_message_adjoint, torch.float32)
+    return d_feat, d_expv, pay
+
+
+def gat_logit_adjoint_plain(src, dst, el, er, expv, d_expv, d_denom):
+    """Plain PyTorch adjoint of the edge softmax's numerators: ``d_x [E,
+    H]``, the cotangent of ``el[src] + er[dst]`` (summed into src it is
+    el's gradient, into dst er's): ``(d_expv + d_denom[dst]) * expv``
+    (exp's adjoint; the max left out), times 0.2 where ``el[src] +
+    er[dst]`` is not positive (LeakyReLU's)."""
+    x = el.index_select(0, src) + er.index_select(0, dst)
+    de = (d_expv + d_denom.index_select(0, dst)) * expv
+    return torch.where(x > 0, de, de * GAT_SLOPE)
+
+
+def gat_logit_adjoint(src, dst, el, er, expv, d_expv, d_denom):
+    """The edge softmax's adjoint (csrc/gat_edge.cu
+    ``gat_logit_adjoint_kernel``): one pass over the slots in place of the
+    plain version's gathers and elementwise passes.  float32, every tensor
+    contiguous.  Returns what ``gat_logit_adjoint_plain`` returns, bit for
+    bit."""
+    if el.device.type == "cpu":
+        return gat_logit_adjoint_plain(src, dst, el, er, expv, d_expv,
+                                       d_denom)
+    if el.device.type != "cuda":
+        raise ValueError(f"GAT logit adjoint: unsupported device {el.device}")
+    dev = el.device
+    E, heads = expv.shape
+    _gat_check("GAT logit adjoint", dev, heads,
+               [("el", el, (el.shape[0], heads)),
+                ("er", er, (er.shape[0], heads)), ("expv", expv, (E, heads)),
+                ("d_expv", d_expv, (E, heads)),
+                ("d_denom", d_denom, (d_denom.shape[0], heads))],
+               [("src", src, E), ("dst", dst, E)])
+    d_x = torch.empty((E, heads), dtype=torch.float32, device=dev)
+    if E == 0:
+        return d_x
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gn_gat_logit_adjoint(
+            E, heads, _ptr(src), _ptr(dst), _ptr(el), _ptr(er), _ptr(expv),
+            _ptr(d_expv), _ptr(d_denom), _ptr(d_x),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "GAT logit adjoint")
+    _count(gat_logit_adjoint, torch.float32)
+    return d_x
+
+
 # ------------------------------------------------------------ launch counting
 KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
            "k2_side_sum": k2_side_sum, "k3_edge_stage": k3_edge_stage, "k6_score_gate": k6_score_gate,
            "k7_gate_stats": k7_gate_stats,
            "k8_train_layer_bwd": k8_train_layer_bwd,
            "k9_aggregate": k9_aggregate, "bn_edge_adjoint": bn_edge_adjoint,
-           "ln_edge_stage": ln_edge_stage, "ln_edge_adjoint": ln_edge_adjoint}
+           "ln_edge_stage": ln_edge_stage, "ln_edge_adjoint": ln_edge_adjoint,
+           "gat_node_logits": gat_node_logits,
+           "gat_edge_softmax": gat_edge_softmax, "gat_messages": gat_messages,
+           "gat_message_adjoint": gat_message_adjoint,
+           "gat_logit_adjoint": gat_logit_adjoint,
+           "gat_node_adjoint": gat_node_adjoint}
 for _fn in KERNELS.values():
     _fn.launches = _fn.launches_bf16 = 0
 

@@ -12,8 +12,13 @@ the golden graph with its node ids relabelled by a seeded permutation; the
 batch-norm edge adjoint at w = 128 and 64 on the golden graph's edge count
 and the ~2.41M edges of the cell train-b64-g524k; the layer-norm edge
 stage and its adjoint at d = 64 on the golden graph and at the 1.21M edge
-rows over 262,144 nodes of the cell train-ln64-g262k.  float32, and bf16
-where the kernel has a bf16 instantiation; inputs drawn from ``--seed``.
+rows over 262,144 nodes of the cell train-ln64-g262k; the six GAT
+kernels at 3 heads of 64 on the golden graph with a self-loop a node and
+on the graph of the cell train-gat-g524k (``positional_bench_graph`` at
+524,288 nodes and degree 6, the generator the cell's traffic freezes a
+copy of, from ``--seed``: ~2.41M edges, and a self-loop a node).
+float32, and bf16 where the kernel has a bf16 instantiation; inputs drawn
+from ``--seed``.
 
 Per row: ``ms``, the device's time a call: CUDA events around 10 calls
 queued behind a sleep kernel, median of 10 repeats after 3 warm-up calls;
@@ -56,6 +61,8 @@ BF2 = 2              # bytes of a bfloat16
 DUAL_D = 128         # the batch-norm step's dual pass: d = 2 x 64
 BN_ADJOINT_CELL_ROWS = 2_410_000           # train-b64-g524k's edges
 LN_CELL_ROWS, LN_CELL_NODES = 1_210_000, 262_144   # train-ln64-g262k's
+GAT_CELL_NODES, GAT_CELL_DEGREE = 524_288, 6.0      # train-gat-g524k's
+GAT_HEADS, GAT_D = 3, 64                               # its GATConv
 
 
 def cuda_ms(fn, reps: int = 10, n: int = 10, warmup: int = 3,
@@ -192,6 +199,106 @@ def ln_adjoint_cost(N: int, E: int, d: int):
     4, the messages 2) and 2 float64 adds (the parameter sums)."""
     return (F4 * (5 * E * d + 2 * E + 2 * N * 2 * d + 2 * d + 5 * E * d
                   + 2 * d) + I4 * 2 * E, 30.0 * E * d, 2.0 * E * d)
+
+
+def gat_node_logits_cost(N: int, H: int, d: int):
+    """The GAT node logits: read feat [N, H d] and the two [H, d] attention
+    vectors; write el, er [N, H]; two products and two sums an element."""
+    return F4 * (N * H * d + 2 * H * d + 2 * N * H), 4.0 * N * H * d, 0.0
+
+
+def gat_node_adjoint_cost(N: int, H: int, d: int):
+    """The GAT node adjoint: read feat and acc [N, H d], d_el, d_er [N, H]
+    and the attention vectors; write d_feat [N, H d] and [2, H d] float64
+    sums; 4 float32 operations an element (two products, two sums) and 4
+    float64 (two products, two sums)."""
+    return (F4 * (3 * N * H * d + 2 * N * H + 2 * H * d) + 8 * 2 * H * d,
+            4.0 * N * H * d, 4.0 * N * H * d)
+
+
+def gat_softmax_cost(N: int, E: int, H: int):
+    """The GAT edge softmax: read src [E], the row pointers and el, er [N,
+    H]; write expv [E, H]; per (slot, head) an add, the LeakyReLU, a max,
+    a subtraction and exp (~4 operations)."""
+    return F4 * (2 * N * H + E * H) + I4 * (E + N + 1), 8.0 * E * H, 0.0
+
+
+def gat_messages_cost(N: int, E: int, H: int, d: int):
+    """The GAT messages: read src, dst, feat [N, H d], expv [E, H] and the
+    denominators [N, H]; write msg [E, H d] and alpha [E, H]; a product an
+    element and a division a (slot, head).  (Gathered a slot at a time, the
+    feat rows move E x H d floats, not N x H d.)"""
+    return (F4 * (N * H * d + E * H + N * H + E * H * d + E * H)
+            + I4 * 2 * E, 1.0 * E * H * d + 2.0 * E * H, 0.0)
+
+
+def gat_message_adjoint_cost(N: int, E: int, H: int, d: int):
+    """The messages' adjoint: read src, dst, d_out and feat [N, H d],
+    alpha [E, H] and the denominators [N, H]; write d_feat [E, H d],
+    d_expv and the denominators' payload [E, H]; three operations an
+    element (two products, a sum) and ~5 a (slot, head)."""
+    return (F4 * (2 * N * H * d + E * H + N * H + E * H * d + 2 * E * H)
+            + I4 * 2 * E, 3.0 * E * H * d + 5.0 * E * H, 0.0)
+
+
+def gat_logit_adjoint_cost(N: int, E: int, H: int):
+    """The edge softmax's adjoint: read src, dst, el, er and d_denom [N,
+    H], expv and d_expv [E, H]; write d_x [E, H]; ~5 operations a (slot,
+    head)."""
+    return F4 * (3 * N * H + 3 * E * H) + I4 * 2 * E, 5.0 * E * H, 0.0
+
+
+def gat_rows(graphs, dev, gen):
+    """The GAT kernels' rows (float32 only) at the GATConv's 3 heads of
+    64, on each ``(size, DeviceGraph)`` of ``graphs`` (processor graphs,
+    a self-loop a node)."""
+    import torch
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    H, d = GAT_HEADS, GAT_D
+    for size, g in graphs:
+        N, E = g.n_nodes, g.n_edges
+        s, t = g.src, g.dst
+        _, _, by_dst, _ = g.roles(False)
+
+        def randn(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+
+        feat, d_out, attn = randn(N, H * d), randn(N, H * d), randn(2, H, d)
+        el, er = K.gat_node_logits(feat, *attn)
+        expv = K.gat_edge_softmax(s, t, g.dst_ptr, el, er)
+        denom = K.k2_side_sum(t, by_dst, expv)
+        alpha = K.gat_messages(s, t, feat, expv, denom)[1]
+        adj = (s, t, el, er, expv, randn(E, H), randn(N, H))
+        shape = f"{size} E'={E} H={H} d={d}"
+        nodes = (feat, *attn, randn(N, H), randn(N, H), d_out)
+        yield ("gat_node_logits", torch.float32, shape,
+               lambda: K.gat_node_logits(feat, *attn),
+               lambda: K.gat_node_logits_plain(feat, *attn), None,
+               gat_node_logits_cost(N, H, d))
+        yield ("gat_node_adjoint", torch.float32, shape,
+               lambda: K.gat_node_adjoint(*nodes),
+               lambda: K.gat_node_adjoint_plain(*nodes), None,
+               gat_node_adjoint_cost(N, H, d))
+        yield ("gat_edge_softmax", torch.float32, shape,
+               lambda: K.gat_edge_softmax(s, t, g.dst_ptr, el, er),
+               lambda: K.gat_edge_softmax_plain(s, t, el, er), None,
+               gat_softmax_cost(N, E, H))
+        yield ("gat_messages", torch.float32, shape,
+               lambda: K.gat_messages(s, t, feat, expv, denom),
+               lambda: K.gat_messages_plain(s, t, feat, expv, denom), None,
+               gat_messages_cost(N, E, H, d))
+        yield ("gat_message_adjoint", torch.float32, shape,
+               lambda: K.gat_message_adjoint(s, t, d_out, feat, alpha, denom),
+               lambda: K.gat_message_adjoint_plain(s, t, d_out, feat, alpha,
+                                                   denom), None,
+               gat_message_adjoint_cost(N, E, H, d))
+        yield ("gat_logit_adjoint", torch.float32, shape,
+               lambda: K.gat_logit_adjoint(*adj),
+               lambda: K.gat_logit_adjoint_plain(*adj), None,
+               gat_logit_adjoint_cost(N, E, H))
+        del el, er, feat, d_out, attn, expv, denom, alpha, adj, nodes
 
 
 def rows(g, rel, dev, seed: int):
@@ -366,6 +473,22 @@ def rows(g, rel, dev, seed: int):
                lambda: K.ln_edge_adjoint(*adj),
                lambda: K.ln_edge_adjoint_plain(*adj), None,
                ln_adjoint_cost(n, rows_, d))
+    del cell, fwd, adj, e_out, stats
+    # the GAT kernels (float32 only; a tree without them has no rows):
+    # on the golden graph and on the GAT cell's graph, each the GAT's
+    # processor graph (a self-loop a node)
+    if hasattr(K, "gat_messages"):
+        from gnnome_tpu_torch.config import ModelConfig
+        from gnnome_tpu_torch.graphs.synthetic import positional_bench_graph
+        from gnnome_tpu_torch.models.zoo import processor_graph
+
+        def proc(src, dst, n):
+            return processor_graph(ModelConfig(model="gat"), src, dst, n, dev)
+
+        cell = positional_bench_graph(GAT_CELL_NODES, GAT_CELL_DEGREE, seed)
+        yield from gat_rows(
+            [("golden", proc(g.src.cpu().numpy(), g.dst.cpu().numpy(), N)),
+             ("cell", proc(cell[0], cell[1], GAT_CELL_NODES))], dev, gen)
 
 
 def measure(seed: int):

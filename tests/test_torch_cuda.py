@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8, K9,
-the batch-norm edge adjoint and the layer-norm edge stage and its adjoint
-against their plain PyTorch versions, on the card; every wrapper at E = 0;
+the batch-norm edge adjoint, the layer-norm edge stage and its adjoint and
+the six GAT kernels against their plain PyTorch versions, on the card;
+every wrapper at E = 0;
 two card train steps from one state bitwise equal, with no host
 synchronisation inside a step (batch norm, layer norm, none, the zoo); and
 the card probes.  The model, CLI and recorded-run paths on the card are in
@@ -58,8 +59,9 @@ from gnnome_tpu_torch.probes.dma_probe import GRID_SWEEP, K_SWEEP
 from torch_recipes import cuda  # noqa: F401  (the fixture)
 from torch_recipes import (GOLDEN, NO_EDGE_CASES, TRAIN_STEP_LAUNCHES,
                            UNFUSED_STEP_ALL_BF16, UNFUSED_STEP_BF16,
-                           UNFUSED_STEP_LAUNCHES, ZOO_STEP_SIDE_SUMS,
-                           check_no_edge_call, expected_launches, times)
+                           UNFUSED_STEP_LAUNCHES, ZOO_STEP_LAUNCHES,
+                           check_no_edge_call, expected_launches, gat_graph,
+                           gat_hub_graph, times)
 
 pytestmark = pytest.mark.cuda
 
@@ -547,21 +549,112 @@ def test_k2_side_sum_kernel_vs_cpu_plain(graphs, cuda, side, width, pad,
     assert torch.equal(got, K.k2_side_sum(idx, csr, pay))
 
 
+# The GAT kernels (csrc/gat_edge.cu, float32) on processor graphs (a
+# self-loop a node): the assembly graph, a graph with a hub of over 2,500
+# in-edges (over 313 chunks of the softmax's team of 8; the one hub of
+# tests/test_torch_gat_edge.py) and the golden graph, at the model's 3
+# heads of 64 (a head's 16 float4 lanes) and, on the small graphs, 1 head
+# of 192 (32 lanes of two vectors), 4 of 20 (5 float4 of 8 lanes) and 2 of
+# 6 (one float a lane).  Tolerances: the softmax's exp may
+# differ from torch.exp by an ulp: rtol=1e-6; the messages, both d_feat
+# and the logit adjoint repeat the plain version's operations: exact; the
+# dot products (el, er, and d_alpha in d_expv and the denominators'
+# payload) add in another order than torch.sum: within 1e-5 of the sum of
+# their terms' magnitudes (the plain version on absolute values), plus
+# 1e-6; the attention vectors' gradients, float64 block sums rounded once,
+# within 1e-6 of their magnitudes of the same sums in float64.
+@pytest.fixture(scope="module")
+def gat_graphs(graph, cuda):
+    golden = AssemblyGraph.load(GOLDEN)
+    return {"assembly": gat_graph(graph.src.cpu(), graph.dst.cpu(),
+                                  graph.n_nodes, cuda),
+            "hub": gat_hub_graph(cuda),
+            "golden": gat_graph(golden.src, golden.dst, golden.num_nodes,
+                                cuda)}
+
+
+GAT_SHAPES = [(3, 64), (1, 192), (4, 20), (2, 6)]
+GAT_CASES = ([(w, h, d) for w in ("assembly", "hub") for h, d in GAT_SHAPES]
+             + [("golden", 3, 64)])
+
+
+def _launch(fn, *args):
+    """``fn(*args)``, one launch counted, and the same bits again."""
+    n0 = fn.launches
+    got = fn(*args)
+    assert fn.launches == n0 + 1
+    again = fn(*args)
+    got_t = got if isinstance(got, tuple) else (got,)
+    again_t = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(got_t, again_t))
+    return got
+
+
+@pytest.mark.parametrize("which,heads,d", GAT_CASES)
+def test_gat_edge_kernels_vs_plain(gat_graphs, cuda, which, heads, d):
+    g = gat_graphs[which]
+    n, E = g.n_nodes, g.n_edges
+    gen = torch.Generator(device=cuda).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    feat, d_out = randn(n, heads * d), randn(n, heads * d)
+    attn = randn(2, heads, d)
+    el, er = _launch(K.gat_node_logits, feat, *attn)
+    mag = K.gat_node_logits_plain(feat.abs(), *attn.abs())
+    for x, y, m in zip((el, er), K.gat_node_logits_plain(feat, *attn), mag):
+        assert ((x - y).abs() <= 1e-5 * m + 1e-6).all()
+    d_el, d_er = randn(n, heads), randn(n, heads)
+    d_feat, d_attn = _launch(K.gat_node_adjoint, feat, *attn, d_el, d_er,
+                             d_out)
+    ref = K.gat_node_adjoint_plain(feat.double(), *attn.double(),
+                                   d_el.double(), d_er.double(),
+                                   d_out.double())
+    m = K.gat_node_adjoint_plain(feat.double().abs(), *attn.double(),
+                                 d_el.double().abs(), d_er.double().abs(),
+                                 d_out.double())[1]
+    assert torch.equal(d_feat, K.gat_node_adjoint_plain(
+        feat, *attn, d_el, d_er, d_out)[0])
+    assert ((d_attn.double() - ref[1]).abs() <= 1e-6 * m + 1e-7).all()
+    s, t = g.src, g.dst
+    expv = _launch(K.gat_edge_softmax, s, t, g.dst_ptr, el, er)
+    torch.testing.assert_close(expv, K.gat_edge_softmax_plain(s, t, el, er),
+                               rtol=1e-6, atol=0)
+    _, _, by_dst, _ = g.roles(False)
+    denom = K.k2_side_sum(t, by_dst, expv)
+    denom[0] = torch.tensor([0.0, 5e-10, 1e-9, 2e-9][:heads], device=cuda)
+    msg, alpha = _launch(K.gat_messages, s, t, feat, expv, denom)
+    ref = K.gat_messages_plain(s, t, feat, expv, denom)
+    assert torch.equal(msg, ref[0]) and torch.equal(alpha, ref[1])
+    got = _launch(K.gat_message_adjoint, s, t, d_out, feat, alpha, denom)
+    ref = K.gat_message_adjoint_plain(s, t, d_out, feat, alpha, denom)
+    mag = K.gat_message_adjoint_plain(s, t, d_out.abs(), feat.abs(), alpha,
+                                      denom)
+    assert torch.equal(got[0], ref[0])
+    for x, y, m in zip(got[1:], ref[1:], (mag[1], mag[1] * alpha)):
+        assert ((x - y).abs() <= 1e-5 * m.abs() + 1e-6).all()
+    d_expv, d_denom = randn(E, heads), randn(n, heads)
+    args = (s, t, el, er, expv, d_expv, d_denom)
+    assert torch.equal(_launch(K.gat_logit_adjoint, *args),
+                       K.gat_logit_adjoint_plain(*args))
+
+
 @pytest.mark.parametrize("name,directed", [
     ("gatedgcn", False), ("gat", True), ("gatedgcn", True), ("gcn", True),
     ("sage", True)])
 def test_two_card_zoo_train_steps_bitwise_equal(cuda, name, directed):
     """Two zoo train steps (plain BCE, dropout 0.2) from one state, bit for
-    bit, launching only the one-sided walk and the predictor's K2, and
-    never waiting for the device."""
+    bit, launching only the one-sided walk, the predictor's K2 and (GAT)
+    the six GAT kernels once a layer each, and never waiting for the
+    device."""
     from gnnome_tpu_torch.config import Config
 
     cfg = Config()
     cfg.model.model = name
     cfg.model.directed = directed
     (counts, _), _ = _two_card_steps(cuda, cfg)
-    assert counts == expected_launches(
-        k2_side_sum=2 * ZOO_STEP_SIDE_SUMS[name], k2_aggregate=2)
+    assert counts == expected_launches(**times(ZOO_STEP_LAUNCHES[name], 2))
 
 
 # ------------------------------------------------------------------- bf16

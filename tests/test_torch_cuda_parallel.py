@@ -30,7 +30,8 @@ parameters after Adam bitwise equal on every rank; the golden AP within
 1e-4 of the JAX figure; per rank 8 K3 + 1 K6 per eval forward and
 16/16/16/16/2/2 K7/K3/K8/edge adjoint/K6/K9 per step (two directional
 passes), per sharded forward 8 K1 + 8 K2 (layer norm, none), 8 one-sided
-walks (GatedGCN, GCN, SAGE) or 16 (GAT), and no launch on a rank whose
+walks (GatedGCN, GCN, SAGE) or 16 with 8 each of its three forward
+kernels (GAT: csrc/gat_edge.cu), and no launch on a rank whose
 block holds no edge.
 """
 import json
@@ -47,7 +48,7 @@ from torch_recipes import (AP_TOL, FEW_PAIRS_GRAPH, FORWARD_LAUNCHES, GOLDEN,
                            HALO_STEP_LAUNCHES, INFER_LEN_THRESHOLD, INIT_SEED,
                            JAX_GOLDEN_AP, K1K2_FORWARD_LAUNCHES, LOGIT_ATOL,
                            LOGIT_RTOL, OVERFIT_GRAPH, WEIGHTS,
-                           ZOO_FORWARD_SIDE_SUMS, check_step,
+                           ZOO_FORWARD_LAUNCHES, check_step,
                            check_wire_counts, expected_launches,
                            launch_two_hosts, make_infer_dataset, overfit_run,
                            write_dataset)
@@ -408,7 +409,7 @@ def test_sharded_eval_vs_single_device(groups, single, P, name, mid):
     assert sum(edges) == ref.shape[0]
     model = SHARDED_MODELS[mid][0]
     _launches_per_rank(res, K1K2_FORWARD_LAUNCHES if model == "sym_gatedgcn"
-                       else {"k2_side_sum": ZOO_FORWARD_SIDE_SUMS[model]})
+                       else ZOO_FORWARD_LAUNCHES[model])
     if name == "few":
         assert 0 in edges
 

@@ -39,7 +39,7 @@ from torch_recipes import (AP_TOL, FORWARD_LAUNCHES, GOLDEN, INFER_GRAPH,
                            UNFUSED_FORWARD_BF16, UNFUSED_FORWARD_LAUNCHES,
                            UNFUSED_SCORE_COS, UNFUSED_SCORE_DP,
                            UNFUSED_STEP_LAUNCHES, WEIGHTS,
-                           ZOO_FORWARD_SIDE_SUMS, check_step,
+                           ZOO_FORWARD_LAUNCHES, check_step,
                            expected_launches, golden_subgraph,
                            make_infer_dataset, overfit_run, times,
                            write_dataset)
@@ -108,7 +108,7 @@ FORWARD_CASES = {
                        UNFUSED_FORWARD_BF16["layer"]),
     "none-bfloat16": (UNFUSED_FORWARD_ALL_BF16["none"],
                       UNFUSED_FORWARD_BF16["none"]),
-    **{case: ({"k2_side_sum": ZOO_FORWARD_SIDE_SUMS[MODELS[case][0]]}, {})
+    **{case: (ZOO_FORWARD_LAUNCHES[MODELS[case][0]], {})
        for case in ("gatedgcn", "gcn", "gat", "sage",
                     "gatedgcn_undirected")}}
 
@@ -495,8 +495,7 @@ def test_cli_zoo_gcn_on_card(cuda, tmp_path):
     assert len(log) == 2 and all(np.isfinite(r["train/loss"]) for r in log)
     out = os.path.join(ds, "hifiasm")
     _, counts, _ = _infer(ds, out, model_path, *gcn)
-    assert counts == expected_launches(
-        k2_side_sum=ZOO_FORWARD_SIDE_SUMS["gcn"])
+    assert counts == expected_launches(**ZOO_FORWARD_LAUNCHES["gcn"])
     logits = np.load(os.path.join(out, "decode", "0_predicts.npy"))
     graph = AssemblyGraph.load(os.path.join(ds, "hifiasm", "processed",
                                             "0.npz"))

@@ -290,7 +290,10 @@ def test_wrappers_count_only_kernel_launches(graphs):
                               "k2_side_sum", "k3_edge_stage", "k6_score_gate",
                               "k7_gate_stats", "k8_train_layer_bwd",
                               "k9_aggregate", "bn_edge_adjoint",
-                              "ln_edge_stage", "ln_edge_adjoint"}
+                              "ln_edge_stage", "ln_edge_adjoint",
+                              "gat_node_logits", "gat_edge_softmax",
+                              "gat_messages", "gat_message_adjoint",
+                              "gat_logit_adjoint", "gat_node_adjoint"}
 
 
 # ------------------------------------------------------- training functions

@@ -90,6 +90,28 @@ def golden_subgraph(g):
     return g.node_subgraph(golden_keep(g))[0]
 
 
+def gat_graph(src, dst, n: int, device="cpu") -> DeviceGraph:
+    """The GAT's processor graph of ``(src, dst)``: the edges and a
+    self-loop a node."""
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.models.zoo import processor_graph
+
+    return processor_graph(ModelConfig(model="gat"), np.asarray(src),
+                           np.asarray(dst), n, device)
+
+
+def gat_hub_graph(device="cpu") -> DeviceGraph:
+    """300 nodes, 1,500 random edges, 2,500 into node 7, as the GAT's
+    processor graph: a hub of over 2,500 in-edges."""
+    rng = np.random.default_rng(4)
+    n = 300
+    src = rng.integers(0, n, 4000)
+    dst = np.concatenate([rng.integers(1, n, 1500), np.full(2500, 7)])
+    g = gat_graph(src, dst, n, device)
+    assert int(g.dst_ptr[8] - g.dst_ptr[7]) > 2500
+    return g
+
+
 def overfit_run(root: str, normalization: str = "batch",
                 dtype: str = "float32", device: str | None = None):
     """``cli train --overfit`` of the overfit recipe (``OVERFIT_GRAPH``, 12
@@ -274,18 +296,34 @@ UNFUSED_FORWARD_BF16 = {"none": K1K2_FORWARD_LAUNCHES,
 UNFUSED_STEP_BF16 = {"none": K1K2_STEP_LAUNCHES,
                      "layer": {"k1_gather_gate": 2, "k2_aggregate": 2}}
 # the model zoo: per eval forward the one-sided K2 walk runs once per
-# sum_into (GAT: two per layer, the softmax sums and the messages); per
-# step also once per gather_rows in the backward (GatedGCN two per layer,
-# GCN and SAGE one, GAT four), and one K2 for the predictor's gathers
-ZOO_FORWARD_SIDE_SUMS = {"gatedgcn": 8, "gcn": 8, "gat": 16, "sage": 8}
-ZOO_STEP_SIDE_SUMS = {"gatedgcn": 24, "gcn": 16, "gat": 48, "sage": 16}
+# sum_into (GatedGCN, GCN, SAGE one a layer; GAT two a layer, its
+# softmax's denominators and its messages, with its three forward kernels
+# around them); per step also once per gather_rows in the backward
+# (GatedGCN two a layer, GCN and SAGE one) or, for GAT, four more walks a
+# layer (the adjoints of its messages, denominators, el and er) with its
+# three adjoint kernels, and one K2 for the predictor's gathers
+GAT_FORWARD_KERNELS = {"gat_node_logits": 8, "gat_edge_softmax": 8,
+                    "gat_messages": 8}
+ZOO_FORWARD_LAUNCHES = {"gatedgcn": {"k2_side_sum": 8},
+                        "gcn": {"k2_side_sum": 8},
+                        "gat": {"k2_side_sum": 16, **GAT_FORWARD_KERNELS},
+                        "sage": {"k2_side_sum": 8}}
+ZOO_STEP_LAUNCHES = {"gatedgcn": {"k2_side_sum": 24, "k2_aggregate": 1},
+                     "gcn": {"k2_side_sum": 16, "k2_aggregate": 1},
+                     "gat": {"k2_side_sum": 48, "k2_aggregate": 1,
+                             **GAT_FORWARD_KERNELS, "gat_message_adjoint": 8,
+                             "gat_logit_adjoint": 8, "gat_node_adjoint": 8},
+                     "sage": {"k2_side_sum": 16, "k2_aggregate": 1}}
 
 
 # ------------------------------------------------------------- no edges
 NO_EDGE_N, NO_EDGE_D = 5, 8
-# float32 only: the one-sided walk (the zoo ignores the compute dtype) and
-# the layer-norm edge stage and its adjoint (bf16 keeps the PyTorch chain)
-FLOAT32_ONLY = ("k2_side_sum", "ln_edge_stage", "ln_edge_adjoint")
+# float32 only: the one-sided walk and the GAT kernels (the zoo ignores the
+# compute dtype) and the layer-norm edge stage and its adjoint (bf16 keeps
+# the PyTorch chain)
+FLOAT32_ONLY = ("k2_side_sum", "ln_edge_stage", "ln_edge_adjoint",
+                "gat_node_logits", "gat_edge_softmax", "gat_messages",
+                "gat_message_adjoint", "gat_logit_adjoint", "gat_node_adjoint")
 NO_EDGE_CASES = [(name, dt) for name in sorted(K.KERNELS)
                  for dt in (torch.float32, torch.bfloat16)
                  if not (name in FLOAT32_ONLY and dt == torch.bfloat16)]
@@ -295,7 +333,7 @@ def no_edge_call(name, dt, device="cpu", d: int = NO_EDGE_D):
     """``(wrapper call, expected outputs)`` of wrapper ``name`` on a graph
     of ``NO_EDGE_N`` nodes and no edges on ``device``: empty edge rows,
     zero node sums, zero float64 statistics (what a halo rank whose block
-    holds no edge gets)."""
+    holds no edge gets); the GAT's node kernels on no node."""
     n = NO_EDGE_N
     dg = DeviceGraph.build(np.zeros(0, np.int64), np.zeros(0, np.int64), n,
                            device)
@@ -313,6 +351,10 @@ def no_edge_call(name, dt, device="cpu", d: int = NO_EDGE_D):
 
     bn = torch.stack([torch.zeros(d), torch.ones(d), torch.ones(d),
                       torch.zeros(d)]).to(device, dt)
+    # the GAT kernels (float32): 3 heads of d; the node kernels on no node
+    nh = torch.randn(n, 3, generator=gen).to(device)
+    feat = torch.randn(n, 3 * d, generator=gen).to(device)
+    attn = torch.randn(2, 3, d, generator=gen).to(device)
     return {
         "k1_gather_gate": (lambda: K.k1_gather_gate(u, v, pu, pv, edges(d)),
                            [edges(3 * d)]),
@@ -347,6 +389,22 @@ def no_edge_call(name, dt, device="cpu", d: int = NO_EDGE_D):
                                       edges(3 * d), edges(d), edges(d),
                                       edges(2), bn[2], bn[3]),
             [edges(2 * d), edges(2 * d), edges(d), zeros(2, d)]),
+        "gat_node_logits": (lambda: K.gat_node_logits(feat[:0], *attn),
+                            [zeros(0, 3)] * 2),
+        "gat_node_adjoint": (
+            lambda: K.gat_node_adjoint(feat[:0], *attn, nh[:0], nh[:0],
+                                       feat[:0]),
+            [zeros(0, 3 * d), zeros(2, 3, d)]),
+        "gat_edge_softmax": (lambda: K.gat_edge_softmax(u, v, v_csr[0], nh,
+                                                        nh), [edges(3)]),
+        "gat_messages": (lambda: K.gat_messages(u, v, feat, edges(3), nh),
+                         [edges(3 * d), edges(3)]),
+        "gat_message_adjoint": (
+            lambda: K.gat_message_adjoint(u, v, feat, feat, edges(3), nh),
+            [edges(3 * d), edges(3), edges(3)]),
+        "gat_logit_adjoint": (
+            lambda: K.gat_logit_adjoint(u, v, nh, nh, edges(3), edges(3), nh),
+            [edges(3)]),
     }[name]
 
 
