@@ -14,8 +14,8 @@ its main paths, and every kernel timed alone.
    epochs, which must learn) with the batch-norm model in float32
    (``train``) and bf16 (``train_bf16``), the layer-norm model in float32
    (``train_layer``) and the norm-free one in bf16 (``train_none_bf16``);
-   and ``cli train`` of the GAT for 2 epochs on the same dataset
-   (``train_gat``).
+   and ``cli train`` for 2 epochs on the same dataset of the GAT
+   (``train_gat``) and of the Graph Transformer (``train_gt``).
 3. Every kernel row of scripts/torch_kernel_times.py, timed alone beside
    its bound.
 
@@ -46,6 +46,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 PATHS = [("train", "sym_gatedgcn", "batch", "float32"),
          ("train_layer", "sym_gatedgcn", "layer", "float32"),
          ("train_gat", "gat", "batch", "float32"),
+         ("train_gt", "graph_transformer", "batch", "float32"),
          ("train_bf16", "sym_gatedgcn", "batch", "bfloat16"),
          ("train_none_bf16", "sym_gatedgcn", "none", "bfloat16")]
 

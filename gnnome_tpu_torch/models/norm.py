@@ -19,6 +19,11 @@ flip half).
 LayerNorm (norm.py:111-115) is the same in eval and training; ``none``
 (norm.py:118-128) is the identity.
 
+``residual_batch_norm`` is the training-mode BatchNorm of a residual sum,
+``BN(a + b)``, as one autograd Function over hand-written kernels
+(csrc/bn_residual.cu; the Graph Transformer layer's four norms, float32):
+``batch_norm_train``'s arithmetic with one ``[n, d]`` tensor saved.
+
 BatchNorm takes bfloat16 input too (the JAX package's bf16 mode,
 norm.py:48-68,84-108): the input is cast to float32, the statistics, the
 running-statistic updates and the normalisation run in float32, and the
@@ -29,7 +34,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.kernels import wide
+from ..ops.kernels import bn_residual_backward, bn_residual_forward, wide
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -148,3 +153,35 @@ def apply_norm(norm: nn.Module | None, x: torch.Tensor) -> torch.Tensor:
         return (batch_norm_train(norm, x) if norm.training
                 else batch_norm_eval(norm, x))
     return layer_norm(norm, x)
+
+
+class _ResidualBatchNorm(torch.autograd.Function):
+    """See ``residual_batch_norm``.  Saved: ``x = a + b`` and the [2, d]
+    statistics; nothing else row-sized."""
+
+    @staticmethod
+    def forward(ctx, a, b, weight, bias, bn):
+        y, x, stats = bn_residual_forward(
+            a.contiguous(), b.contiguous(), weight, bias, bn.running_mean,
+            bn.running_var, bn.num_batches_tracked, BN_EPS, BN_MOMENTUM)
+        ctx.save_for_backward(x, stats, weight)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats, weight = ctx.saved_tensors
+        dx, dwb = bn_residual_backward(g.contiguous(), x, stats, weight)
+        return dx, dx, dwb[0], dwb[1], None
+
+
+def residual_batch_norm(bn: nn.BatchNorm1d, a: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """Training-mode ``batch_norm_train(bn, a + b)`` as one autograd
+    Function (``ops.kernels.bn_residual_forward`` / ``_backward``: the
+    kernels on CUDA, their plain versions on the CPU): the batch mean and
+    biased variance normalise, gradients flow through both, the running
+    statistics take one update (unbiased variance, momentum 0.1) and
+    ``num_batches_tracked`` advances by 1.  ``a``, ``b`` [n, d] float32 on
+    CUDA (any float dtype on the CPU); the gradient of ``a`` and of ``b`` is
+    one tensor."""
+    return _ResidualBatchNorm.apply(a, b, bn.weight, bn.bias, bn)

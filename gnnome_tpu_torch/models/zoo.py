@@ -51,7 +51,9 @@ outside both.  ``alpha`` is formed in the message kernel, so it lies in
 ``gat.aggregate``.  In each Graph Transformer layer the attention (the
 projections, gathers, scores, ``exp`` and the sums into dst) is
 ``gt.attention``; ``O_h``, ``O_e``, the residuals, the four norms and the
-two feed-forward nets are ``gt.feedforward``.
+two feed-forward nets are ``gt.feedforward``.  In training (float32) each
+residual and its BatchNorm is one autograd Function, ``residual_batch_norm``
+(csrc/bn_residual.cu), nothing ``[n, d]`` saved but the residual sum.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ from ..ops.kernels import (gat_edge_softmax, gat_logit_adjoint,
 from ..ops.message import gather_rows, sum_into
 from ..utils.timing import span
 from .nn import dropout, mlp2
-from .norm import apply_norm
+from .norm import apply_norm, residual_batch_norm
 from .sym_gated_gcn import (GATE_EPS, NORMALIZATIONS, ScorePredictor,
                             SymGatedGCN)
 
@@ -465,6 +467,16 @@ GT_CLAMP = 5.0      # the per-head scores' clamp before exp
 GT_EPS = 1e-6       # added to the sums of the weights before the divide
 
 
+def _residual_norm(norm: nn.Module | None, a, b):
+    """``apply_norm(norm, a + b)``; a training-mode BatchNorm of float32
+    rows is one Function over the residual sum (``residual_batch_norm``:
+    hand-written kernels on CUDA), the same arithmetic in fewer passes."""
+    if (isinstance(norm, nn.BatchNorm1d) and norm.training
+            and a.dtype == torch.float32):
+        return residual_batch_norm(norm, a, b)
+    return apply_norm(norm, a + b)
+
+
 class _GTLayer(nn.Module):
     """One ``GraphTransformerLayer`` with edge features (residual, FFN of
     width 2d on nodes and edges): the published module names, its
@@ -520,12 +532,12 @@ class _GTLayer(nn.Module):
             if drop_rate > 0.0:
                 h_att = dropout(h_att, drop_rate, generator)
                 s = dropout(s, drop_rate, generator)
-            h = apply_norm(self.norm1_h, h + self.O_h(h_att))
-            e = apply_norm(self.norm1_e, e + self.O_e(s))
-            h = apply_norm(self.norm2_h,
-                           h + self._ffn("h", h, drop_rate, generator))
-            e = apply_norm(self.norm2_e,
-                           e + self._ffn("e", e, drop_rate, generator))
+            h = _residual_norm(self.norm1_h, h, self.O_h(h_att))
+            e = _residual_norm(self.norm1_e, e, self.O_e(s))
+            h = _residual_norm(self.norm2_h, h,
+                               self._ffn("h", h, drop_rate, generator))
+            e = _residual_norm(self.norm2_e, e,
+                               self._ffn("e", e, drop_rate, generator))
         return h, e
 
 

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels K1, K2, K3, K6, K7, K8, K9, the batch-norm
-edge adjoint, the layer-norm edge stage and its adjoint and the GAT
-layer's six kernels, their plain PyTorch versions, and the build that
-turns ``csrc/*.cu`` into one shared library.
+edge adjoint, the layer-norm edge stage and its adjoint, the GAT layer's
+six kernels and the residual BatchNorm's, their plain PyTorch versions,
+and the build that turns ``csrc/*.cu`` into one shared library.
 
 K3 (edge stage) and K6 (score gate) carry the batch-norm model's forward;
 K7 (gate batch statistics), K8 (edge-stage adjoint), the batch-norm edge
@@ -21,6 +21,10 @@ six such walks (``models/zoo.py`` ``gat_conv``, csrc/gat_edge.cu):
 ``gat_messages`` (alpha and the weighted rows ``feat[src]``), and in the
 backward ``gat_message_adjoint``, ``gat_logit_adjoint`` and
 ``gat_node_adjoint`` (feat's and the attention vectors' gradients).
+The Graph Transformer's training-mode BatchNorm of a residual sum
+(``models/norm.residual_batch_norm``, csrc/bn_residual.cu) is
+``bn_residual_forward`` (x = a + b, the batch statistics, the running
+statistics' update, the normalisation) and ``bn_residual_backward``.
 
 K1, K2, K3, K6, K7, K8, K9 and the edge adjoint run in float32 or
 bfloat16 (the JAX package's ``compute.dtype=bfloat16``): each kernel has a
@@ -29,14 +33,17 @@ tensors' dtype, that reads and writes bf16 rows, computes in float32 and
 rounds where the JAX bf16 kernel rounds; its plain version does the same
 operations on bf16 tensors.  K2 and K9 sum bf16 payloads into float32
 node sums.  The one-sided K2 walk (the zoo), the GAT kernels and the
-layer-norm edge stage and its adjoint take float32 only (bf16 operands keep
-the PyTorch chain, ``models/sym_gated_gcn.py``; the zoo runs in float32).
+layer-norm edge stage and its adjoint and the residual BatchNorm take
+float32 only (bf16 operands keep the PyTorch chain,
+``models/sym_gated_gcn.py``; the zoo runs in float32).
 
 Each kernel wrapper takes the plain version only when its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.  With no edges (E =
 0, a halo rank whose block holds no edge; for the GAT's node kernels no
 node) a wrapper launches nothing and returns what the plain version
-returns: empty edge rows, zero node sums, zero float64 statistics.  Each wrapper counts
+returns: empty edge rows, zero node sums, zero float64 statistics (the
+residual BatchNorm, which takes batch statistics, raises on no rows,
+forward and backward).  Each wrapper counts
 its launches in ``<wrapper>.launches``, and those of its bf16 instantiation
 also in ``<wrapper>.launches_bf16`` (see ``launch_counts``), so a run can
 show that its main path went through the kernels, and in which dtype.
@@ -73,7 +80,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libgnnome_kernels.so")
 SOURCES = ("k1_gather_gate.cu", "k2_aggregate.cu", "k3_edge_stage.cu",
            "k6_score_gate.cu", "k7_gate_stats.cu", "k8_train_layer_bwd.cu",
            "k9_aggregate.cu", "bn_edge_adjoint.cu", "ln_edge_stage.cu",
-           "gat_edge.cu")
+           "gat_edge.cu", "bn_residual.cu")
 HEADERS = ("edge_math.cuh", "csr_sum.cuh", "csr_walk.cuh",
            "k3_edge_stage.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -222,6 +229,17 @@ def _library():
                 L, I, P, P, P, P,            # n_rows, d, u_idx, v_idx, d_sum_u, d_sum_v
                 P, P, P, P, P, P,            # g3, e_out, d_e_out, stats, weight, bias
                 P, P, P, P, P, P]            # pay_u, pay_v, d_e, partials, d_wb, stream
+            lib.gn_bn_residual_blocks.restype = I
+            lib.gn_bn_residual_blocks.argtypes = [L, I, I]
+            D = ctypes.c_double
+            lib.gn_bn_residual_forward.restype = I
+            lib.gn_bn_residual_forward.argtypes = [
+                L, I, I, P, P, P, P, D, D,   # n_rows, d, vec, a, b, weight, bias, eps, momentum
+                P, P, P, P, P, P, P, P]      # x, y, stats, running_mean, running_var, tracked, partials, stream
+            lib.gn_bn_residual_backward.restype = I
+            lib.gn_bn_residual_backward.argtypes = [
+                L, I, I, P, P, P, P,         # n_rows, d, vec, g, x, stats, weight
+                P, P, P, P, P]               # dx, dwb, sums, partials, stream
             lib.gn_gat_edge_softmax.restype = I
             lib.gn_gat_edge_softmax.argtypes = [
                 I, I, P, P,                  # n_nodes, heads, ptr, src
@@ -1016,6 +1034,138 @@ def ln_edge_adjoint(u_idx, v_idx, d_sum_u, d_sum_v, g3, e_out, d_e_out,
     return pay_u, pay_v, d_e, d_wb
 
 
+# ------------------------------------------------------ residual BatchNorm
+def bn_residual_forward_plain(a, b, weight, bias, running_mean, running_var,
+                              tracked, eps: float, momentum: float):
+    """Plain PyTorch residual training-mode BatchNorm over the rows of ``x
+    = a + b`` ([n, d]): ``(y [n, d], x, stats [2, d])`` with ``stats`` =
+    [mean | rsqrt(var + eps)], the batch mean and biased variance (two
+    passes), ``y = ((x - mean) * inv) * weight + bias``; updates
+    ``running_mean``, ``running_var`` (unbiased variance) at ``momentum``
+    and advances ``tracked`` by 1, in place.  The operations of
+    ``models/norm.batch_norm_train`` over ``a + b``."""
+    x = a + b
+    n = x.shape[0]
+    mean = x.sum(0) / n
+    var = ((x - mean) ** 2).sum(0) / n
+    inv = torch.rsqrt(var + eps)
+    y = ((x - mean) * inv) * weight + bias
+    with torch.no_grad():
+        unbiased = var * (n / (n - 1) if n > 1 else 1.0)
+        running_mean.copy_((1.0 - momentum) * running_mean + momentum * mean)
+        running_var.copy_((1.0 - momentum) * running_var
+                          + momentum * unbiased)
+        tracked.add_(1)
+    return y, x, torch.stack([mean, inv])
+
+
+def bn_residual_backward_plain(g, x, stats, weight):
+    """Plain PyTorch adjoint of ``bn_residual_forward_plain``: ``(dx [n,
+    d], dwb [2, d])`` from the output's gradient ``g`` and the forward's
+    ``x`` and ``stats``, with ``xhat = (x - mean) * inv``: ``dx = (weight *
+    inv) * ((g - mean(g)) - xhat * mean(g * xhat))``, the gradient of ``a``
+    and of ``b`` (through the batch mean and variance), and ``dwb`` =
+    [sum g * xhat | sum g], the gradients of ``weight`` and ``bias``."""
+    mean, inv = stats[0], stats[1]
+    n = x.shape[0]
+    xhat = (x - mean) * inv
+    sg, sgx = g.sum(0), (g * xhat).sum(0)
+    dx = (weight * inv) * ((g - sg / n) - xhat * (sgx / n))
+    return dx, torch.stack([sgx, sg])
+
+
+def _bn_residual_vec(d: int, tensors) -> int:
+    """1 where the kernels take 16-byte words (d a multiple of 4, every
+    row pointer 16-byte aligned), else 0 (one float a thread)."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def bn_residual_forward(a, b, weight, bias, running_mean, running_var,
+                        tracked, eps: float, momentum: float):
+    """The residual BatchNorm's forward (csrc/bn_residual.cu: the
+    statistics kernel, its finisher, the normalise kernel) in place of the
+    plain version's passes.  float32, ``a`` and ``b`` [n, d] contiguous,
+    ``weight``, ``bias``, ``running_mean``, ``running_var`` [d],
+    ``tracked`` an int64 scalar.  Returns what
+    ``bn_residual_forward_plain`` returns, with the same updates: ``x``
+    bit for bit, the statistics from float64 block sums merged in a fixed
+    order (so they differ from the plain version's by rounding, and repeat
+    bit for bit), ``y`` bit for bit the plain version's normalisation of
+    ``x`` with them.  No rows: raises (no batch statistics)."""
+    if a.shape[0] == 0:
+        raise ValueError("residual BatchNorm: no rows to take batch "
+                         "statistics over")
+    if a.device.type == "cpu":
+        return bn_residual_forward_plain(a, b, weight, bias, running_mean,
+                                         running_var, tracked, eps, momentum)
+    if a.device.type != "cuda":
+        raise ValueError(f"residual BatchNorm: unsupported device {a.device}")
+    dev = a.device
+    n, d = a.shape
+    for name, t in (("a", a), ("b", b)):
+        _check(name, t, torch.float32, (n, d), dev)
+    for name, t in (("weight", weight), ("bias", bias),
+                    ("running_mean", running_mean),
+                    ("running_var", running_var)):
+        _check(name, t, torch.float32, (d,), dev)
+    _check("tracked", tracked, torch.int64, (), dev)
+    x, y = torch.empty_like(a), torch.empty_like(a)
+    stats = torch.empty((2, d), dtype=torch.float32, device=dev)
+    vec = _bn_residual_vec(d, (a, b, x, y, weight, bias))
+    lib = _library()
+    partials = torch.empty((lib.gn_bn_residual_blocks(n, d, vec), 3 * d),
+                           dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gn_bn_residual_forward(
+            n, d, vec, _ptr(a), _ptr(b), _ptr(weight), _ptr(bias), eps,
+            momentum, _ptr(x), _ptr(y), _ptr(stats), _ptr(running_mean),
+            _ptr(running_var), _ptr(tracked), _ptr(partials),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "residual BatchNorm forward")
+    _count(bn_residual_forward, torch.float32)
+    return y, x, stats
+
+
+def bn_residual_backward(g, x, stats, weight):
+    """The residual BatchNorm's backward (csrc/bn_residual.cu: the sums
+    kernel, ``reduce_partials``, the dx kernel) in place of the plain
+    version's passes.  float32, ``g`` and ``x`` [n, d] contiguous,
+    ``stats`` [2, d], ``weight`` [d].  Returns what
+    ``bn_residual_backward_plain`` returns: the column sums are float64
+    block sums added in a fixed order and rounded once (the plain version
+    sums in float32), so ``dwb`` and, through the sums' means, ``dx``
+    differ from it by rounding, and repeat bit for bit.  No rows: raises,
+    as the forward does."""
+    if x.shape[0] == 0:
+        raise ValueError("residual BatchNorm: no rows (the forward takes "
+                         "none)")
+    if g.device.type == "cpu":
+        return bn_residual_backward_plain(g, x, stats, weight)
+    if g.device.type != "cuda":
+        raise ValueError(f"residual BatchNorm: unsupported device {g.device}")
+    dev = g.device
+    n, d = x.shape
+    for name, t in (("g", g), ("x", x)):
+        _check(name, t, torch.float32, (n, d), dev)
+    _check("stats", stats, torch.float32, (2, d), dev)
+    _check("weight", weight, torch.float32, (d,), dev)
+    dx = torch.empty_like(x)
+    dwb = torch.empty((2, d), dtype=torch.float32, device=dev)
+    sums = torch.empty(2 * d, dtype=torch.float64, device=dev)
+    vec = _bn_residual_vec(d, (g, x, dx, stats, weight))
+    lib = _library()
+    partials = torch.empty((lib.gn_bn_residual_blocks(n, d, vec), 2 * d),
+                           dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gn_bn_residual_backward(
+            n, d, vec, _ptr(g), _ptr(x), _ptr(stats), _ptr(weight), _ptr(dx),
+            _ptr(dwb), _ptr(sums), _ptr(partials),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "residual BatchNorm backward")
+    _count(bn_residual_backward, torch.float32)
+    return dx, dwb
+
+
 # ------------------------------------------------------------ GAT edge work
 GAT_SLOPE = 0.2         # LeakyReLU's negative slope
 GAT_DENOM_MIN = 1e-9    # the softmax denominators' clamp
@@ -1334,7 +1484,9 @@ KERNELS = {"k1_gather_gate": k1_gather_gate, "k2_aggregate": k2_aggregate,
            "gat_edge_softmax": gat_edge_softmax, "gat_messages": gat_messages,
            "gat_message_adjoint": gat_message_adjoint,
            "gat_logit_adjoint": gat_logit_adjoint,
-           "gat_node_adjoint": gat_node_adjoint}
+           "gat_node_adjoint": gat_node_adjoint,
+           "bn_residual_forward": bn_residual_forward,
+           "bn_residual_backward": bn_residual_backward}
 for _fn in KERNELS.values():
     _fn.launches = _fn.launches_bf16 = 0
 

@@ -12,7 +12,9 @@ the golden graph with its node ids relabelled by a seeded permutation; the
 batch-norm edge adjoint at w = 128 and 64 on the golden graph's edge count
 and the ~2.41M edges of the cell train-b64-g524k; the layer-norm edge
 stage and its adjoint at d = 64 on the golden graph and at the 1.21M edge
-rows over 262,144 nodes of the cell train-ln64-g262k; the six GAT
+rows over 262,144 nodes of the cell train-ln64-g262k; the residual
+BatchNorm's forward and backward at d = 64 on the ~0.90M edge rows and
+196,608 node rows of the cell train-gt-g196k; the six GAT
 kernels at 3 heads of 64 on the golden graph with a self-loop a node and
 on the graph of the cell train-gat-g524k (``positional_bench_graph`` at
 524,288 nodes and degree 6, the generator the cell's traffic freezes a
@@ -27,7 +29,10 @@ share included); ``plain_ms`` the kernel's plain PyTorch version;
 ``library_ms`` the one PyTorch call that computes the same function, where
 there is one; ``bound_ms`` the larger of the least bytes (inputs read
 once, outputs written once) over 3.35 TB/s and the operations over their
-peak (67 TFLOP/s float32, 34 float64), ``bound_by`` which one.  The
+peak (67 TFLOP/s float32, 34 float64), ``bound_by`` which one;
+``kernels_ms``, for a wrapper that launches several kernels (the residual
+BatchNorm's), each kernel's device time a call from ``torch.profiler``
+over 10 calls.  The
 correctness of every kernel at these shapes is the card suite's
 (tests/test_torch_cuda.py).
 
@@ -63,6 +68,8 @@ BN_ADJOINT_CELL_ROWS = 2_410_000           # train-b64-g524k's edges
 LN_CELL_ROWS, LN_CELL_NODES = 1_210_000, 262_144   # train-ln64-g262k's
 GAT_CELL_NODES, GAT_CELL_DEGREE = 524_288, 6.0      # train-gat-g524k's
 GAT_HEADS, GAT_D = 3, 64                               # its GATConv
+GT_CELL_ROWS = {"edges": 903_171, "nodes": 196_608}    # train-gt-g196k's
+SPLIT = ("bn_residual_forward", "bn_residual_backward")
 
 
 def cuda_ms(fn, reps: int = 10, n: int = 10, warmup: int = 3,
@@ -199,6 +206,82 @@ def ln_adjoint_cost(N: int, E: int, d: int):
     4, the messages 2) and 2 float64 adds (the parameter sums)."""
     return (F4 * (5 * E * d + 2 * E + 2 * N * 2 * d + 2 * d + 5 * E * d
                   + 2 * d) + I4 * 2 * E, 30.0 * E * d, 2.0 * E * d)
+
+
+def bn_residual_cost(n: int, d: int, forward: bool):
+    """The residual BatchNorm.  Forward: read a and b, write x and y ([n, d]
+    each; the kernels read x once more), the [d] weight, bias and running
+    statistics; per element an add, the statistics' float64 subtraction,
+    add and product, and the normalisation's 4 float32 operations.
+    Backward: read g and x, write dx ([n, d]; the kernels read g and x
+    twice), the [2, d] statistics and weight; per element xhat's 2 float32
+    operations twice and dx's 4, and 2 float64 adds and a product."""
+    if forward:
+        return F4 * (4 * n * d + 4 * d + 2 * d), 5.0 * n * d, 3.0 * n * d
+    return F4 * (3 * n * d + 3 * d + 2 * d), 8.0 * n * d, 3.0 * n * d
+
+
+def bn_residual_rows(dev, gen):
+    """The residual BatchNorm's forward and backward (float32 only) at d =
+    64 on the Graph Transformer cell's edge and node row counts; the
+    forward beside ``F.batch_norm`` in training mode over x = a + b given
+    (the normalisation without the add), the backward beside
+    ``native_batch_norm_backward`` given the forward's mean and inverse."""
+    import torch
+    import torch.nn.functional as F
+
+    from gnnome_tpu_torch.ops import kernels as K
+
+    d = 64
+    for size, n in GT_CELL_ROWS.items():
+        a = torch.randn(n, d, device=dev, generator=gen) * 2.0 + 1.0
+        b = torch.randn(n, d, device=dev, generator=gen)
+        w = torch.rand(d, device=dev, generator=gen) + 0.5
+        bias = torch.randn(d, device=dev, generator=gen)
+        state = (torch.zeros(d, device=dev), torch.ones(d, device=dev),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        fwd = (a, b, w, bias, *state, 1e-5, 0.1)
+        _, x, stats = K.bn_residual_forward(*fwd)
+        bwd = (torch.randn(n, d, device=dev, generator=gen), x, stats, w)
+        shape = f"gt cell {size} rows={n} d={d}"
+        yield ("bn_residual_forward", torch.float32, shape,
+               lambda: K.bn_residual_forward(*fwd),
+               lambda: K.bn_residual_forward_plain(*fwd),
+               lambda: F.batch_norm(x, state[0], state[1], w, bias,
+                                    training=True),
+               bn_residual_cost(n, d, True))
+        yield ("bn_residual_backward", torch.float32, shape,
+               lambda: K.bn_residual_backward(*bwd),
+               lambda: K.bn_residual_backward_plain(*bwd),
+               lambda: torch.ops.aten.native_batch_norm_backward(
+                   bwd[0], x, w, state[0], state[1], stats[0], stats[1],
+                   True, 1e-5, [True, True, True]),
+               bn_residual_cost(n, d, False))
+        del a, b, x, stats, fwd, bwd
+
+
+def kernels_ms(fn, n: int = 10) -> dict:
+    """Each kernel's device milliseconds a call of ``fn``, from
+    ``torch.profiler`` over ``n`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            name = name.split("<")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / n / 1e3
+    return out
 
 
 def gat_node_logits_cost(N: int, H: int, d: int):
@@ -489,6 +572,9 @@ def rows(g, rel, dev, seed: int):
         yield from gat_rows(
             [("golden", proc(g.src.cpu().numpy(), g.dst.cpu().numpy(), N)),
              ("cell", proc(cell[0], cell[1], GAT_CELL_NODES))], dev, gen)
+    # the residual BatchNorm (float32 only; a tree without it has no rows)
+    if hasattr(K, "bn_residual_forward"):
+        yield from bn_residual_rows(dev, gen)
 
 
 def measure(seed: int):
@@ -509,11 +595,14 @@ def measure(seed: int):
     for name, dt, shape, fn, plain, library, cost in rows(g, rel, dev, seed):
         ms = cuda_ms(fn, queued=True)
         b_ms, b_by = bound(*cost)
-        yield {"kernel": name, "dtype": str(dt).split(".")[1], "shape": shape,
-               "ms": ms, "call_ms": cuda_ms(fn), "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": cost[0], "share_of_bound": b_ms / ms,
-               "plain_ms": cuda_ms(plain),
+        row = {"kernel": name, "dtype": str(dt).split(".")[1],
+               "shape": shape, "ms": ms, "call_ms": cuda_ms(fn),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": cost[0],
+               "share_of_bound": b_ms / ms, "plain_ms": cuda_ms(plain),
                "library_ms": cuda_ms(library) if library else None}
+        if name in SPLIT:
+            row["kernels_ms"] = kernels_ms(fn)
+        yield row
 
 
 def card() -> dict:

@@ -1,6 +1,8 @@
 """The CUDA kernels K1, K2 (and its one-sided walk), K3, K6, K7, K8, K9,
-the batch-norm edge adjoint, the layer-norm edge stage and its adjoint and
-the six GAT kernels against their plain PyTorch versions, on the card;
+the batch-norm edge adjoint, the layer-norm edge stage and its adjoint,
+the six GAT kernels and the residual BatchNorm's against their plain
+PyTorch versions, on the card (the last also in one step of the Graph
+Transformer cell);
 every wrapper at E = 0;
 two card train steps from one state bitwise equal, with no host
 synchronisation inside a step (batch norm, layer norm, none, the zoo); and
@@ -978,6 +980,183 @@ def test_bn_edge_adjoint_rejects_bad_inputs(cuda):
     empty = torch.zeros(0, 64, device=cuda)
     out = K.bn_edge_adjoint(empty, empty, bn, sc)
     assert out.shape == (0, 64) and K.bn_edge_adjoint.launches == n0
+
+
+# The residual BatchNorm's kernels (csrc/bn_residual.cu, float32) against
+# their plain versions: at the Graph Transformer cell's row counts (~0.90M
+# edge rows, 196,608 node rows) at d = 64, at a width of one float a
+# thread (20), at a width of two column chunks (1100), and on rows one
+# float off a 16-byte boundary (the one-float path).  Column means run up
+# to 1e3 beside a spread of ~2, so the variance is taken about a far mean.
+# Tolerances.  Forward: x = a + b exact; y exactly the plain version's
+# normalisation (the same operations, on the card) of x with the kernel's
+# statistics; mean and rsqrt(var + eps) within 2 float32 spacings of their
+# float64 values (the kernel merges float64 partials and rounds once), and
+# within the plain version's float32 sums' error of its statistics: the
+# mean within 1e-5 of mean(|x|), the inverse within 1e-4 of itself; the
+# running mean exactly 0.9 rm + 0.1 mean (float32 operations) and the
+# running variance within 4 spacings of its float64 update;
+# num_batches_tracked advanced by one.  Backward, fed the kernel's x and
+# statistics: d_weight and d_bias within 2 spacings of the float64 sums of
+# their float32 terms plus 1e-10 of the terms' magnitudes, and within 1e-5
+# of those magnitudes of the plain version's float32 sums; dx within 1e-6
+# of its terms' magnitude M = |w inv| (|g| + |mean g| + |xhat mean(g
+# xhat)|) of the float64 formula, and within 1e-5 of M (with the sums'
+# magnitudes over n) of the plain version's.  Two calls give the same
+# bits.
+BN_RES_CASES = [(903_171, 64, 0), (196_608, 64, 0), (5_001, 20, 0),
+                (20_000, 1100, 0), (100_003, 64, 1)]
+F32_SPACING = 2.0 ** -23
+
+
+def _bn_res_inputs(n, d, cuda, seed, offset):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    shift = torch.logspace(-1, 3, d, device=cuda)
+    a, b, g = (_shifted(t, offset) for t in (randn(n, d) * 2.0 + shift,
+                                             randn(n, d), randn(n, d)))
+    weight = torch.rand(d, device=cuda, generator=gen) + 0.5
+    bias, rm = randn(d), randn(d)
+    rv = torch.rand(d, device=cuda, generator=gen) + 0.5
+    return a, b, g, weight, bias, rm, rv
+
+
+def _bn_res_forward(fn, a, b, weight, bias, rm, rv):
+    """``fn``'s outputs on copies of the running statistics, and the
+    copies (mean, variance, num_batches_tracked) after the call."""
+    state = (rm.clone(), rv.clone(),
+             torch.zeros((), dtype=torch.int64, device=a.device))
+    return fn(a, b, weight, bias, *state, 1e-5, 0.1), state
+
+
+@pytest.mark.parametrize("n,d,offset", BN_RES_CASES)
+def test_bn_residual_kernels_vs_plain(cuda, n, d, offset):
+    a, b, g, weight, bias, rm, rv = _bn_res_inputs(n, d, cuda, 41, offset)
+    assert (a.data_ptr() % 16 == 0) == (offset == 0)
+    n0 = K.bn_residual_forward.launches
+    (y, x, stats), (rm_k, rv_k, nb_k) = _bn_res_forward(
+        K.bn_residual_forward, a, b, weight, bias, rm, rv)
+    assert K.bn_residual_forward.launches == n0 + 1
+    (_, x_p, stats_p), (rm_p, rv_p, nb_p) = _bn_res_forward(
+        K.bn_residual_forward_plain, a, b, weight, bias, rm, rv)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x_p) and int(nb_k) == int(nb_p) == 1
+    mean, inv = stats
+    assert torch.equal(y, ((x - mean) * inv) * weight + bias)
+    x64 = x.double()
+    mean64, var64 = x64.mean(0), x64.var(0, unbiased=False)
+    inv64 = torch.rsqrt(var64 + 1e-5)
+    assert ((mean.double() - mean64).abs()
+            <= 2 * F32_SPACING * mean64.abs() + 1e-12).all()
+    assert ((inv.double() - inv64).abs() <= 2 * F32_SPACING * inv64).all()
+    assert ((mean - stats_p[0]).abs() <= 1e-5 * x.abs().mean(0)).all()
+    torch.testing.assert_close(inv, stats_p[1], rtol=1e-4, atol=0)
+    assert torch.equal(rm_k, (1.0 - 0.1) * rm + 0.1 * mean)
+    rv64 = 0.9 * rv.double() + 0.1 * var64 * (n / (n - 1))
+    assert ((rv_k.double() - rv64).abs() <= 4 * F32_SPACING * rv64).all()
+    torch.testing.assert_close(rm_k, rm_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rv_k, rv_p, rtol=1e-4, atol=0)
+
+    m0 = K.bn_residual_backward.launches
+    dx, dwb = K.bn_residual_backward(g, x, stats, weight)
+    assert K.bn_residual_backward.launches == m0 + 1
+    dx_p, dwb_p = K.bn_residual_backward_plain(g, x, stats, weight)
+    xhat = (x - mean) * inv                   # the kernel's float32 xhat
+    g64, xh64 = g.double(), xhat.double()
+    sums64 = torch.stack([(g64 * xh64).sum(0), g64.sum(0)])
+    mag = torch.stack([(g64 * xh64).abs().sum(0), g64.abs().sum(0)])
+    assert ((dwb.double() - sums64).abs()
+            <= 2 * F32_SPACING * sums64.abs() + 1e-10 * mag).all()
+    assert ((dwb - dwb_p).abs().double() <= 1e-5 * mag).all()
+    wi = (weight.double() * inv.double()).abs()
+    c1, c2 = sums64[1] / n, sums64[0] / n
+    dx64 = (weight.double() * inv.double()) * ((g64 - c1) - xh64 * c2)
+    M = wi * (g64.abs() + c1.abs() + (xh64 * c2).abs())
+    assert ((dx.double() - dx64).abs() <= 1e-6 * M).all()
+    M_p = wi * (g64.abs() + mag[1] / n + xh64.abs() * mag[0] / n)
+    assert ((dx - dx_p).abs().double() <= 1e-5 * M_p).all()
+
+    (y2, x2, stats2), state2 = _bn_res_forward(
+        K.bn_residual_forward, a, b, weight, bias, rm, rv)
+    assert torch.equal(y, y2) and torch.equal(x, x2)
+    assert torch.equal(stats, stats2)
+    assert torch.equal(rm_k, state2[0]) and torch.equal(rv_k, state2[1])
+    dx2, dwb2 = K.bn_residual_backward(g, x, stats, weight)
+    assert torch.equal(dx, dx2) and torch.equal(dwb, dwb2)
+
+
+def test_bn_residual_rejects_bad_inputs(cuda):
+    a, b, g, weight, bias, rm, rv = _bn_res_inputs(1_000, 64, cuda, 42, 0)
+    tracked = torch.zeros((), dtype=torch.int64, device=cuda)
+    n0 = K.bn_residual_forward.launches
+    m0 = K.bn_residual_backward.launches
+    fwd = (weight, bias, rm, rv, tracked, 1e-5, 0.1)
+    with pytest.raises(TypeError):                       # float64 rows
+        K.bn_residual_forward(a.double(), b.double(), *fwd)
+    with pytest.raises(ValueError):                      # b's shape
+        K.bn_residual_forward(a, b[:-1], *fwd)
+    with pytest.raises(ValueError):                      # a column slice
+        K.bn_residual_forward(torch.zeros(1_000, 72, device=cuda)[:, :64],
+                              b, *fwd)
+    with pytest.raises(TypeError):                       # tracked's dtype
+        K.bn_residual_forward(a, b, weight, bias, rm, rv, tracked.float(),
+                              1e-5, 0.1)
+    with pytest.raises(ValueError):                      # no rows
+        K.bn_residual_forward(a[:0], b[:0], *fwd)
+    stats = torch.ones(2, 64, device=cuda)
+    with pytest.raises(ValueError):                      # stats' width
+        K.bn_residual_backward(g, a, stats[:, :32], weight)
+    with pytest.raises(ValueError):                      # g not dense
+        K.bn_residual_backward(torch.zeros(64, 1_000, device=cuda).t(), a,
+                               stats, weight)
+    with pytest.raises(ValueError):                      # no rows
+        K.bn_residual_backward(g[:0], a[:0], stats, weight)
+    assert K.bn_residual_forward.launches == n0
+    assert K.bn_residual_backward.launches == m0
+    assert int(tracked) == 0
+
+
+def test_gt_cell_step_runs_the_residual_norms_and_its_walks(cuda):
+    """One training step of the cell train-gt-g196k (its driver: 196,608
+    nodes, ~0.90M edges, 10 layers at d 64) after set-up: the residual
+    BatchNorm's Function runs 4 times a layer forward and backward (40
+    each), and the trace holds 32 ``csr_row_sum`` launches (3 walks a layer
+    and the predictor's two-sided K2), as ``k2side_roofline.gt`` reads
+    them."""
+    import re
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_recipes import ROOT
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from benchmarks.harness import manifest
+    from gnnome_tpu_torch.utils import timing
+
+    c = manifest.cell("train-gt-g196k")
+    layers = c.config["num_gnn_layers"]
+    drv = manifest.load_module("drivers", "train_gt_full_graph.py").Driver(
+        c.config, c.traffic, 2 ** 31 + 5, "cuda")
+    drv.setup()
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        drv.step()
+        torch.cuda.synchronize()
+    counts = K.launch_counts()
+    drv.release()
+    timing.clear()
+    walks = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and re.search(r"\bcsr_row_sum\b", ev.key))
+    assert counts == expected_launches(
+        k2_side_sum=3 * layers, k2_aggregate=1,
+        bn_residual_forward=4 * layers, bn_residual_backward=4 * layers)
+    assert layers == 10 and walks == 3 * layers + 2
 
 
 # Every wrapper at E = 0 on the card (a halo rank whose block holds no

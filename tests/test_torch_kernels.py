@@ -293,7 +293,8 @@ def test_wrappers_count_only_kernel_launches(graphs):
                               "ln_edge_stage", "ln_edge_adjoint",
                               "gat_node_logits", "gat_edge_softmax",
                               "gat_messages", "gat_message_adjoint",
-                              "gat_logit_adjoint", "gat_node_adjoint"}
+                              "gat_logit_adjoint", "gat_node_adjoint",
+                              "bn_residual_forward", "bn_residual_backward"}
 
 
 # ------------------------------------------------------- training functions

@@ -301,7 +301,10 @@ UNFUSED_STEP_BF16 = {"none": K1K2_STEP_LAUNCHES,
 # around them); per step also once per gather_rows in the backward
 # (GatedGCN two a layer, GCN and SAGE one) or, for GAT, four more walks a
 # layer (the adjoints of its messages, denominators, el and er) with its
-# three adjoint kernels, and one K2 for the predictor's gathers
+# three adjoint kernels, and one K2 for the predictor's gathers; the Graph
+# Transformer's step also runs its four residual BatchNorms a layer as one
+# Function each (forward and backward kernels; its eval forward takes the
+# running statistics, no kernel)
 GAT_FORWARD_KERNELS = {"gat_node_logits": 8, "gat_edge_softmax": 8,
                     "gat_messages": 8}
 ZOO_FORWARD_LAUNCHES = {"gatedgcn": {"k2_side_sum": 8},
@@ -316,7 +319,9 @@ ZOO_STEP_LAUNCHES = {"gatedgcn": {"k2_side_sum": 24, "k2_aggregate": 1},
                              "gat_logit_adjoint": 8, "gat_node_adjoint": 8},
                      "sage": {"k2_side_sum": 16, "k2_aggregate": 1},
                      "graph_transformer": {"k2_side_sum": 24,
-                                           "k2_aggregate": 1}}
+                                           "k2_aggregate": 1,
+                                           "bn_residual_forward": 32,
+                                           "bn_residual_backward": 32}}
 
 
 # ------------------------------------------------------------- no edges
@@ -327,9 +332,13 @@ NO_EDGE_N, NO_EDGE_D = 5, 8
 FLOAT32_ONLY = ("k2_side_sum", "ln_edge_stage", "ln_edge_adjoint",
                 "gat_node_logits", "gat_edge_softmax", "gat_messages",
                 "gat_message_adjoint", "gat_logit_adjoint", "gat_node_adjoint")
+# the residual BatchNorm takes batch statistics: no rows raises, forward and
+# backward (tests/test_torch_residual_bn.py)
+NEEDS_ROWS = ("bn_residual_forward", "bn_residual_backward")
 NO_EDGE_CASES = [(name, dt) for name in sorted(K.KERNELS)
                  for dt in (torch.float32, torch.bfloat16)
-                 if not (name in FLOAT32_ONLY and dt == torch.bfloat16)]
+                 if not (name in FLOAT32_ONLY and dt == torch.bfloat16)
+                 and name not in NEEDS_ROWS]
 
 
 def no_edge_call(name, dt, device="cpu", d: int = NO_EDGE_D):
