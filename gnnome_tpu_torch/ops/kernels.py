@@ -275,9 +275,10 @@ def _library():
                 P, P, P]                     # out, lse, stream
             lib.gn_gps_attention_backward.restype = I
             lib.gn_gps_attention_backward.argtypes = [
-                L, I, P, P, P, I, I,         # n_tiles, heads, qkv, tiles, seed, layer, drop
+                L, L, I, I, P, P, P, I, I,   # n_rows, n_units, heads, splits, qkv, units, seed, layer, drop
                 ctypes.c_uint32, ctypes.c_float,  # keep_below, keep_scale
-                P, P, P, P, P, P]            # out, d_out, lse, dvec, d_qkv, stream
+                P, P, P, P, P,               # out, d_out, lse, dvec, d_qkv
+                P, P, P]                     # dq_part, tickets, stream
             lib.gn_cuda_error_string.restype = ctypes.c_char_p
             lib.gn_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -1487,6 +1488,9 @@ def gat_logit_adjoint(src, dst, el, er, expv, d_expv, d_denom):
 # ------------------------------------------------- GraphGPS global attention
 GPS_HEAD_WIDTH = 16     # the kernels' head width (GraphGPS's 64 / 4 heads)
 GPS_TILE = 128          # rows a CTA owns: 64 threads of 2 rows
+GPS_KEY_TILE = 256      # the backward's keys a CTA a pass: 4 warps of 64
+GPS_BWD_FILL = 256      # backward CTAs that fill an H100: 2 an SM of 132
+GPS_BWD_SPLITS = 32     # the most key ranges a unit and head is cut into
 GPS_COL_SALT = 0x9E3779B9
 _M32 = 0xFFFFFFFF
 
@@ -1540,10 +1544,12 @@ def attention_keep_plain(seed: int, layer: int, heads: int, n_rows: int,
 class AttentionSegments:
     """The units (graphs) of a batch for the block-diagonal attention:
     ``ptr`` (host int64 [B+1], the node offsets, ``ptr[0] = 0``,
-    ``ptr[-1] = N``) and, on ``device``, ``tiles`` (int32 [T, 4], one row
-    ``(r0, r1, u0, u1)`` a CTA: rows ``[r0, r1)``, at most ``GPS_TILE``,
-    of the unit ``[u0, u1)``), built once per batch so that no launch
-    copies from the host."""
+    ``ptr[-1] = N``) and, on ``device``, the forward's ``tiles`` (int32
+    [T, 4], one row ``(r0, r1, u0, u1)`` a CTA: rows ``[r0, r1)``, at most
+    ``GPS_TILE``, of the unit ``[u0, u1)``) and the backward's
+    ``bwd_units`` (int32 [U, 2], one row ``(u0, u1)`` a unit: every
+    non-empty unit once, largest first, ties in batch order), both built
+    once per batch so that no launch copies from the host."""
 
     def __init__(self, graph_ptr, device):
         ptr = np.asarray(graph_ptr, dtype=np.int64)
@@ -1561,6 +1567,25 @@ class AttentionSegments:
                 rows.append((r0, min(r0 + GPS_TILE, int(u1)), u0, u1))
         self.tiles = torch.as_tensor(np.asarray(rows, dtype=np.int32)
                                      .reshape(-1, 4), device=device)
+        sizes = np.diff(ptr)
+        order = np.argsort(-sizes, kind="stable")
+        order = order[sizes[order] > 0]
+        self.bwd_units = torch.as_tensor(
+            np.stack([ptr[order], ptr[order + 1]], axis=1).astype(np.int32),
+            device=device)
+        self.bwd_max_rows = int(sizes.max(initial=0))
+
+    def bwd_splits(self, heads: int) -> int:
+        """The key ranges the backward cuts each unit and head into: 1
+        where the units and heads fill the card (``GPS_BWD_FILL`` CTAs),
+        else as many as fill it, at most ``GPS_BWD_SPLITS`` and the largest
+        unit's key tiles.  A function of the lengths alone, so two runs of
+        a batch add dQ in the same order."""
+        ctas = self.bwd_units.shape[0] * heads
+        if ctas == 0 or ctas >= GPS_BWD_FILL:
+            return 1
+        tiles = -(-self.bwd_max_rows // GPS_KEY_TILE)
+        return min(-(-GPS_BWD_FILL // ctas), GPS_BWD_SPLITS, tiles)
 
     def units(self):
         """``(u0, u1)`` of every unit."""
@@ -1696,13 +1721,20 @@ def gps_attention_forward(qkv, seg: AttentionSegments, seed, layer: int,
 
 def gps_attention_backward(qkv, out, lse, d_out, seg: AttentionSegments, seed,
                            layer: int, heads: int, rate: float):
-    """The block-diagonal attention's backward (csrc/gps_attention.cu:
-    ``gps_attn_bwd_dq``, which also writes ``D = rowsum(dO * O)``, then
-    ``gps_attn_bwd_dkv``; each recomputes the probabilities from ``lse``
-    and owns the rows it writes, so nothing is added atomically and two
-    runs agree bit for bit).  float32, every tensor contiguous.  Returns
-    what ``gps_attention_backward_plain`` returns, equal up to
-    rounding."""
+    """The block-diagonal attention's backward (csrc/gps_attention.cu), two
+    launches: ``gps_attn_bwd_rowdot`` writes ``D = rowsum(dO * O)`` a row
+    and head into the scratch ``[N, heads]``; ``gps_attn_bwd``, one CTA a
+    unit, head and key range (``seg.bwd_units``, largest first;
+    ``seg.bwd_splits`` ranges, 1 where the units fill the card), visits
+    each (query, key) pair once, recomputing ``p`` from ``lse`` and the
+    dropout bit from the seed, and accumulates dV and dK of its keys in
+    registers and dQ of its queries in a fixed order (each warp's ``ds K``
+    in key order through shared memory, the warps in order, key tile after
+    key tile into ``d_qkv``; where a unit's keys are cut into ranges, the
+    later ranges into a scratch ``[(splits - 1) N, d]`` that the range to
+    finish last adds in range order): nothing is added atomically, so two
+    runs agree bit for bit.  float32, every tensor contiguous.  Returns
+    what ``gps_attention_backward_plain`` returns, equal up to rounding."""
     if qkv.device.type == "cpu":
         return gps_attention_backward_plain(qkv, out, lse, d_out, seg, seed,
                                             layer, heads, rate)
@@ -1720,14 +1752,22 @@ def gps_attention_backward(qkv, out, lse, d_out, seg: AttentionSegments, seed,
     if n == 0:
         return d_qkv
     dvec = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    units, splits = seg.bwd_units.shape[0], seg.bwd_splits(heads)
+    part = tickets = None
+    if splits > 1:
+        # dQ of each unit's later key ranges; a ticket a unit and head,
+        # zeroed by the first launch
+        part = torch.empty(((splits - 1) * n, d), dtype=torch.float32,
+                           device=dev)
+        tickets = torch.empty(units * heads, dtype=torch.int32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gn_gps_attention_backward(
-            seg.tiles.shape[0], heads, _ptr(qkv), _ptr(seg.tiles),
+            n, units, heads, splits, _ptr(qkv), _ptr(seg.bwd_units),
             _ptr(seed), layer, int(rate > 0.0), keep_below,
             1.0 / (1.0 - rate), _ptr(out),
-            _ptr(d_out), _ptr(lse), _ptr(dvec), _ptr(d_qkv),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(d_out), _ptr(lse), _ptr(dvec), _ptr(d_qkv), _ptr(part),
+            _ptr(tickets), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "GraphGPS attention backward")
     _count(gps_attention_backward, torch.float32)
     return d_qkv

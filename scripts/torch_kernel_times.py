@@ -17,7 +17,8 @@ BatchNorm's forward and backward at d = 64 on the ~0.90M edge rows and
 196,608 node rows of the cell train-gt-g196k; GraphGPS's attention
 forward and backward at 4 heads of 16, dropout 0.5, on 263 units of
 2,066-2,338 rows drawn from ``--seed`` (the cell train-gps-c1k-g262k's
-batch: ~580k rows, ~1.28e9 pairs a head); the six GAT
+batch: ~580k rows, ~1.28e9 pairs a head), and the backward on the first
+of them alone (one cluster unit a step); the six GAT
 kernels at 3 heads of 64 on the golden graph with a self-loop a node and
 on the graph of the cell train-gat-g524k (``positional_bench_graph`` at
 524,288 nodes and degree 6, the generator the cell's traffic freezes a
@@ -34,8 +35,11 @@ there is one; ``bound_ms`` the larger of the least bytes (inputs read
 once, outputs written once) over 3.35 TB/s and the operations over their
 peak (67 TFLOP/s float32, 34 float64), ``bound_by`` which one;
 ``kernels_ms``, for a wrapper that launches several kernels (the residual
-BatchNorm's, the attention's backward), each kernel's device time a call
-from ``torch.profiler`` over 10 calls.  The attention's ``plain_ms`` (the
+BatchNorm's; the attention's backward, ``gps_attn_bwd_rowdot_kernel`` then
+``gps_attn_bwd_kernel``), each kernel's device time a call from
+``torch.profiler`` over 10 calls, and ``kernels_events_ms`` the same
+calls' time by CUDA events (``kernels_ms`` is null where the two differ
+by more than a tenth).  The attention's ``plain_ms`` (the
 per-unit chain) is the median of 3 single calls, and its ``library_ms`` is
 ``scaled_dot_product_attention`` called once a unit (dropout 0.5), for the
 backward row forward and backward together (autograd).  The
@@ -286,7 +290,9 @@ def gps_attention_cost(lengths, forward: bool):
 
 def gps_attention_rows(dev, gen, seed: int):
     """The attention's forward and backward (float32 only) on the GraphGPS
-    cell's batch, each beside the per-unit chain and
+    cell's batch, and its backward on one of its units (a step of GNNome's
+    route, ``train.units_per_step`` 1, whose keys the backward cuts into
+    ranges), each beside the per-unit chain and
     ``scaled_dot_product_attention`` a unit."""
     import numpy as np
     import torch
@@ -296,61 +302,87 @@ def gps_attention_rows(dev, gen, seed: int):
 
     lengths = [int(n) for n in np.random.default_rng(seed).integers(
         GPS_ROWS[0], GPS_ROWS[1] + 1, GPS_UNITS)]
-    ptr = np.concatenate([[0], np.cumsum(lengths)])
-    seg = K.AttentionSegments(ptr, dev)
-    n, d = int(ptr[-1]), GPS_HEADS * GPS_W
-    qkv = torch.randn(n, 3 * d, device=dev, generator=gen)
-    d_out = torch.randn(n, d, device=dev, generator=gen)
+    d = GPS_HEADS * GPS_W
     seed_t = torch.tensor([seed], dtype=torch.int64, device=dev)
-    args = (seg, seed_t, 0, GPS_HEADS, 0.5)
-    out, lse = K.gps_attention_forward(qkv, *args)
-    heads = [qkv[u0:u1].view(u1 - u0, 3, GPS_HEADS, GPS_W).permute(
-        1, 2, 0, 3)[:, None] for u0, u1 in seg.units()]
 
-    def library(backward: bool):
-        for x in heads:
-            if backward:
-                x = x.detach().requires_grad_()
-            o = F.scaled_dot_product_attention(x[0], x[1], x[2],
-                                               dropout_p=0.5)
-            if backward:
-                torch.autograd.grad(o, x, o)
+    def rows(lens, what: str, forward: bool):
+        ptr = np.concatenate([[0], np.cumsum(lens)])
+        seg = K.AttentionSegments(ptr, dev)
+        n = int(ptr[-1])
+        qkv = torch.randn(n, 3 * d, device=dev, generator=gen)
+        d_out = torch.randn(n, d, device=dev, generator=gen)
+        args = (seg, seed_t, 0, GPS_HEADS, 0.5)
+        out, lse = K.gps_attention_forward(qkv, *args)
+        heads = [qkv[u0:u1].view(u1 - u0, 3, GPS_HEADS, GPS_W).permute(
+            1, 2, 0, 3)[:, None] for u0, u1 in seg.units()]
 
-    shape = (f"gps cell units={GPS_UNITS} rows={n} heads={GPS_HEADS}x"
-             f"{GPS_W} dropout=0.5")
-    yield ("gps_attention_forward", torch.float32, shape,
-           lambda: K.gps_attention_forward(qkv, *args),
-           lambda: K.gps_attention_forward_plain(qkv, *args),
-           lambda: library(False), gps_attention_cost(lengths, True))
-    yield ("gps_attention_backward", torch.float32, shape,
-           lambda: K.gps_attention_backward(qkv, out, lse, d_out, *args),
-           lambda: K.gps_attention_backward_plain(qkv, out, lse, d_out,
-                                                  *args),
-           lambda: library(True), gps_attention_cost(lengths, False))
+        def library(backward: bool):
+            for x in heads:
+                if backward:
+                    x = x.detach().requires_grad_()
+                o = F.scaled_dot_product_attention(x[0], x[1], x[2],
+                                                   dropout_p=0.5)
+                if backward:
+                    torch.autograd.grad(o, x, o)
+
+        shape = (f"gps {what} rows={n} heads={GPS_HEADS}x{GPS_W} "
+                 "dropout=0.5")
+        if forward:
+            yield ("gps_attention_forward", torch.float32, shape,
+                   lambda: K.gps_attention_forward(qkv, *args),
+                   lambda: K.gps_attention_forward_plain(qkv, *args),
+                   lambda: library(False), gps_attention_cost(lens, True))
+        yield ("gps_attention_backward", torch.float32, shape,
+               lambda: K.gps_attention_backward(qkv, out, lse, d_out, *args),
+               lambda: K.gps_attention_backward_plain(qkv, out, lse, d_out,
+                                                      *args),
+               lambda: library(True), gps_attention_cost(lens, False))
+
+    yield from rows(lengths, f"cell units={GPS_UNITS}", True)
+    yield from rows(lengths[:1], "one unit", False)
 
 
-def kernels_ms(fn, n: int = 10) -> dict:
+def kernels_ms(fn, n: int = 10):
     """Each kernel's device milliseconds a call of ``fn``, from
-    ``torch.profiler`` over ``n`` calls after a warm-up."""
+    ``torch.profiler`` over ``n`` calls after a warm-up (a kernel's time
+    over its launches, times its launches a call: a profiler that drops a
+    session's first launch still gives the kernel's time a call), and the
+    same calls' milliseconds by CUDA events, queued behind a sleep kernel
+    so that they time the device alone.  Returns ``(split, events_ms)``;
+    ``split`` is None where the profiler's kernels a call and the events
+    differ by more than a tenth, which neither the gaps between launches
+    nor a dropped launch explain."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1 << 26)
+        a.record()
         for _ in range(n):
             fn()
+        b.record()
         torch.cuda.synchronize()
+    events_ms = a.elapsed_time(b) / n
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a kernel of every call (a dropped first launch aside): not the
+        # sleep kernel
+        if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.count >= n - 1):
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0]
             name = name.split("<")[0].split("::")[-1]
-            out[name] = out.get(name, 0.0) + us / n / 1e3
-    return out
+            per_call = max(1, round(ev.count / n))
+            out[name] = out.get(name, 0.0) + us / ev.count * per_call / 1e3
+    if abs(sum(out.values()) - events_ms) > 0.1 * events_ms:
+        return None, events_ms
+    return out, events_ms
 
 
 def gat_node_logits_cost(N: int, H: int, d: int):
@@ -674,7 +706,7 @@ def measure(seed: int):
                "plain_ms": cuda_ms(plain, **SLOW_PLAIN.get(name, {})),
                "library_ms": cuda_ms(library) if library else None}
         if name in SPLIT:
-            row["kernels_ms"] = kernels_ms(fn)
+            row["kernels_ms"], row["kernels_events_ms"] = kernels_ms(fn)
         yield row
 
 

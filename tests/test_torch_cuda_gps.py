@@ -3,12 +3,19 @@ their plain versions, and the model's train step on the card.
 
 * ``gps_attention_forward`` / ``_backward`` against
   ``gps_attention_forward_plain`` / ``_backward_plain`` on the same card
-  tensors: units of 1, 15, 16, 17 and 2,338 rows alone, and a mixed batch
-  with an empty unit, units across the 128-row tile and the 64-row stage;
-  4 heads of 16; without dropout and at rate 0.5 (the same masks: the
-  kernels' hash equals ``attention_keep_plain``); two runs bitwise equal;
+  tensors: units of 1, 15, 16, 17, 2,338 and 5,000 rows alone, a mixed
+  batch with an empty unit, units across the forward's 128-row tile and
+  64-row stage and the backward's 256-key tile and 32-query stage, and a
+  batch whose units are not in size order (the backward runs them largest
+  first), and a batch of 72 units, enough to fill the card without
+  cutting the units' keys into ranges (the other batches are cut); 4
+  heads of 16; without dropout and at rate 0.5 (the same masks: the
+  kernels' hash equals ``attention_keep_plain``); two runs bitwise equal,
+  on the mixed batch, the 5,000-row unit and the 72 units;
 * the wrappers' launch counts (one forward call, one backward call, each a
-  counted call), and a batch of only empty units (no launch);
+  counted call), a batch of only empty units (no launch), and the
+  backward's two kernels in the profiler's trace (exactly two launches
+  named ``gps_attn_bwd...``, which the benchmark's roofline reads);
 * two GraphGPS train steps on a batch of units on the card from one state
   bitwise equal, with no host synchronisation inside a step, and one
   step against the CPU's (the model at 2 layers, no dropout outside the
@@ -21,10 +28,15 @@ Every test is ``cuda``-marked and skips where no GPU is present (run with
 Tolerances: the kernels sum a row's keys in chunks of 16 with an online
 softmax, in exp2 (the SFU's ``ex2.approx``, 2 ulp), where the plain version
 takes one max and ``exp``, and matrix products in another order; over up
-to 2,338 keys that moves an output by a few 1e-7 of its scale and a
+to 5,000 keys that moves an output by a few 1e-7 of its scale and a
 gradient by a few 1e-6: ``rtol=1e-4, atol=1e-5`` holds both with room.
 """
 import copy
+import json
+import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -43,8 +55,10 @@ pytestmark = pytest.mark.cuda
 
 HEADS = 4
 LENGTHS = {"one": [1], "fifteen": [15], "sixteen": [16], "seventeen": [17],
-           "large": [2338],
-           "mixed": [1, 15, 0, 16, 17, 63, 64, 65, 127, 128, 129, 300, 2338]}
+           "large": [2338], "long": [5000],
+           "mixed": [1, 15, 0, 16, 17, 63, 64, 65, 127, 128, 129, 300, 2338],
+           "unsorted": [300, 33, 2338, 0, 257, 5000, 1, 512, 31],
+           "many": [1, 31, 32, 33, 255, 256, 257, 513, 0, 90] * 8}
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -77,8 +91,9 @@ def test_kernels_against_plain(cuda, case, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-def test_two_runs_bitwise_equal(cuda, rate):
-    seg, qkv, d_out, seed = _case(LENGTHS["mixed"], cuda, seed=3)
+@pytest.mark.parametrize("case", ["mixed", "long", "many"])
+def test_two_runs_bitwise_equal(cuda, case, rate):
+    seg, qkv, d_out, seed = _case(LENGTHS[case], cuda, seed=3)
     runs = []
     for _ in range(2):
         out, lse = K.gps_attention_forward(qkv, seg, seed, 1, HEADS, rate)
@@ -122,6 +137,54 @@ def test_launches_and_empty_units(cuda):
     assert K.gps_attention_backward(qkv0, out, lse, out, empty, seed, 0,
                                     HEADS, 0.5).shape == qkv0.shape
     assert sum(K.launch_counts().values()) == 0
+
+
+_PROFILE_BACKWARD = r"""
+import json
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from gnnome_tpu_torch.ops import kernels as K
+
+lengths = [300, 33, 2338, 0, 257, 5000, 1, 512, 31]
+ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+dev = torch.device("cuda")
+seg = K.AttentionSegments(ptr, dev)
+gen = torch.Generator(device=dev).manual_seed(4)
+qkv = torch.randn(int(ptr[-1]), 192, device=dev, generator=gen)
+d_out = torch.randn(int(ptr[-1]), 64, device=dev, generator=gen)
+seed = torch.tensor([4], dtype=torch.int64, device=dev)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    out, lse = K.gps_attention_forward(qkv, seg, seed, 0, 4, 0.5)
+    torch.cuda.synchronize()
+    K.gps_attention_backward(qkv, out, lse, d_out, seg, seed, 0, 4, 0.5)
+    torch.cuda.synchronize()
+events = sorted((ev for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False)),
+                key=lambda ev: ev.time_range.start)
+print(json.dumps([ev.name for ev in events]))
+"""
+
+
+def test_backward_launches_two_named_kernels(cuda):
+    """One backward call is two launches, both named ``gps_attn_bwd...``
+    (``benchmarks/metrics/attn_bwd_roofline.gps.py`` reads at two a layer
+    a step): the rowdot kernel, then the fused pass.  Profiled as the
+    benchmark traces a cell, in a process of its own (a long process's
+    earlier profiler sessions can leave a session's device recording
+    without its first launches, or empty), host and device activities,
+    the forward first."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", _PROFILE_BACKWARD], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-4000:]
+    names = json.loads(p.stdout.strip().splitlines()[-1])
+    bwd = [re.search(r"\bgps_attn_bwd\w*", nm) for nm in names]
+    assert [m.group() for m in bwd if m] == ["gps_attn_bwd_rowdot_kernel",
+                                             "gps_attn_bwd_kernel"], names
+    assert all("gps_attn_" in nm for nm in names), names
 
 
 def _gps_setup(device):

@@ -564,3 +564,55 @@ def test_train_edge_stage_at_no_edges():
     for t in (*args, gamma, beta):
         assert t.grad is not None and torch.isfinite(t.grad).all()
         assert not t.grad.any()
+
+
+# ------------------------------------------- GraphGPS attention's unit order
+def _cell_lengths(seed):
+    """A batch like the cell train-gps-c1k-g262k's: 263 units of
+    2,066-2,338 rows."""
+    return np.random.default_rng(seed).integers(2066, 2339, 263).tolist()
+
+
+@pytest.mark.parametrize("lengths", [
+    [5, 0, 7], [0, 0], [130, 0, 131, 1], [3, 3, 3, 0, 3], [5000, 2338, 0],
+    [1, 15, 0, 16, 17, 63, 64, 65, 127, 128, 129, 300, 2338],
+    [300, 33, 2338, 0, 257, 5000, 1, 512, 31], "cell0", "cell1"])
+def test_attention_segments_backward_units(lengths):
+    """``bwd_units``: every non-empty unit once as ``(u0, u1)``, none of
+    the empty ones, the largest first and equal sizes in batch order, so
+    that the backward starts its longest CTAs first; the forward's
+    ``tiles`` still cover every row once."""
+    if isinstance(lengths, str):
+        lengths = _cell_lengths(int(lengths[-1]))
+    ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    seg = K.AttentionSegments(ptr, "cpu")
+    units = seg.bwd_units
+    assert units.dtype == torch.int32 and units.shape[1] == 2
+    got = [tuple(r) for r in units.tolist()]
+    want = sorted(((int(a), int(b)) for a, b in zip(ptr[:-1], ptr[1:])
+                   if b > a), key=lambda r: (-(r[1] - r[0]), r[0]))
+    assert got == want
+    sizes = [b - a for a, b in got]
+    assert sizes == sorted(sizes, reverse=True)
+    assert sum(sizes) == seg.n_nodes
+    rows = [r for r0, r1, _, _ in seg.tiles.tolist() for r in range(r0, r1)]
+    assert rows == list(range(seg.n_nodes))
+
+
+@pytest.mark.parametrize("lengths, heads, splits", [
+    ("cell0", 4, 1), ("cell1", 4, 1), ([2200], 4, 9), ([5000], 4, 20),
+    ([9000], 4, 32),
+    ([2338], 1, 10), ([100], 4, 1), ([0, 0], 4, 1), ([300] * 63, 4, 2),
+    ([300] * 64, 4, 1), ([1, 15, 0, 16, 17, 63, 64, 65, 127, 128, 129, 300,
+                          2338], 4, 6)])
+def test_attention_segments_backward_splits(lengths, heads, splits):
+    """``bwd_splits``: 1 key range a unit and head where the units and
+    heads make ``GPS_BWD_FILL`` CTAs (the cell's 263 units), else enough to
+    make them, at most ``GPS_BWD_SPLITS`` and the largest unit's key tiles
+    of ``GPS_KEY_TILE`` (one cluster unit a step: 9 ranges of 2,200 rows)."""
+    if isinstance(lengths, str):
+        lengths = _cell_lengths(int(lengths[-1]))
+    ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    seg = K.AttentionSegments(ptr, "cpu")
+    assert seg.bwd_splits(heads) == splits
+    assert seg.bwd_max_rows == max(lengths)
